@@ -1,0 +1,23 @@
+"""flair_tpu_torch: the PyTorch / CUDA port of flair_tpu for NVIDIA Hopper.
+
+Same sub-package layout and module names as ``flair_tpu`` so every module
+has an obvious counterpart:
+
+- ``flair_tpu_torch.ops``        — primitives (embeddings, norms, resizes,
+                                   warps, attention) and the deformable conv,
+                                   whose CUDA kernel lives in ``csrc/``.
+- ``flair_tpu_torch.operators``  — SVD degradation operators (x8/x16 SRConv).
+- ``flair_tpu_torch.models``     — BicubicUNet, SPyNet, BasicVSR++, blocks.
+- ``flair_tpu_torch.diffusion``  — schedules, respacing, guided sampler.
+- ``flair_tpu_torch.pipeline``   — windowed video restoration driver.
+- ``flair_tpu_torch.utils``      — flax → torch weight conversion, devices,
+                                   kernel builds.
+
+The package imports torch and numpy only. Entry points run on ``cuda``
+unless the caller passes ``device="cpu"``; they never fall back to the CPU.
+Public functions take the JAX package's host layout ((T, h, w, 3) clips in
+[0, 1]); inside, activations are NCHW tensors with (B·T) folded, in
+``torch.channels_last`` memory format.
+"""
+
+__version__ = "0.1.0"

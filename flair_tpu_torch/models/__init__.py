@@ -1,0 +1,3 @@
+"""BicubicUNet, SPyNet, BasicVSR++ and their blocks (torch.nn)."""
+
+from .registry import get_model, list_models, register_model

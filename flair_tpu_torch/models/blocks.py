@@ -1,0 +1,125 @@
+"""UNet building blocks: ADM-style ResBlock, SR3-style blocks.
+
+Counterpart of ``flair_tpu/models/blocks.py`` (reference unet_new.py:233-330
+and sr3.py:63-200). Activations are (B·T, C, H, W) channels_last; ``b`` is
+the clip count B; ``emb`` is the folded (B·T, E) embedding.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn as nn
+
+from ..ops.attention import dot_product_attention
+from .common import Conv2d, Conv3d, Dense, GroupNorm32, nchw, nhwc, silu
+
+
+class ResBlock(nn.Module):
+    """ADM residual block (unet_new.py:233-330) without the up/down
+    variants; ``dims=3`` applies its convs over (T, H, W) with
+    ``kernel_size`` (the SR3 trunk's (3, 1, 1) temporal block)."""
+
+    def __init__(self, in_ch: int, out_ch: int, emb_dim: int, *,
+                 use_scale_shift_norm: bool = False, dims: int = 2,
+                 kernel_size=3, use_conv_skip: bool = False,
+                 dtype=torch.float32):
+        super().__init__()
+        self.use_scale_shift_norm = use_scale_shift_norm
+
+        def conv(zero=False):
+            if dims == 3:
+                ks = ((kernel_size,) * 3 if isinstance(kernel_size, int)
+                      else tuple(kernel_size))
+                return Conv3d(in_ch if not zero else out_ch, out_ch, ks,
+                              zero_init=zero, dtype=dtype)
+            return Conv2d(in_ch if not zero else out_ch, out_ch, 3,
+                          zero_init=zero, dtype=dtype)
+
+        self.dims = dims
+        self.in_norm = GroupNorm32(in_ch, 32)
+        self.in_conv = conv()
+        self.emb_proj = Dense(emb_dim,
+                              2 * out_ch if use_scale_shift_norm else out_ch,
+                              dtype=dtype)
+        self.out_norm = GroupNorm32(out_ch, 32)
+        self.out_conv = conv(zero=True)
+        self.skip = None
+        if in_ch != out_ch:
+            self.skip = Conv2d(in_ch, out_ch, 3 if use_conv_skip else 1,
+                               dtype=dtype)
+
+    def _conv(self, conv, x, b):
+        return conv(x, b) if self.dims == 3 else conv(x)
+
+    def forward(self, x, emb, b: int):
+        h = silu(self.in_norm(x, b))
+        h = self._conv(self.in_conv, h, b)
+        emb_out = self.emb_proj(silu(emb))[:, :, None, None]  # (N, C', 1, 1)
+        if self.use_scale_shift_norm:
+            scale, shift = emb_out.chunk(2, dim=1)
+            h = self.out_norm(h, b) * (1 + scale) + shift
+        else:
+            h = self.out_norm(h + emb_out.to(h.dtype), b)
+        h = self._conv(self.out_conv, silu(h), b)
+        skip = x if self.skip is None else self.skip(x)
+        return skip + h
+
+
+class SR3Block(nn.Module):
+    """GroupNorm → Swish → 3×3 conv (sr3.py:112-124)."""
+
+    def __init__(self, in_ch: int, out_ch: int, norm_groups: int = 32,
+                 dtype=torch.float32):
+        super().__init__()
+        self.norm = GroupNorm32(in_ch, norm_groups)
+        self.conv = Conv2d(in_ch, out_ch, 3, dtype=dtype)
+
+    def forward(self, x, b: int):
+        return self.conv(silu(self.norm(x, b)))
+
+
+class SR3ResnetBlock(nn.Module):
+    """SR3 residual block with additive noise conditioning
+    (sr3.py:64-82, 126-160)."""
+
+    def __init__(self, in_ch: int, out_ch: int, emb_dim: int,
+                 norm_groups: int = 32, dtype=torch.float32):
+        super().__init__()
+        self.block1 = SR3Block(in_ch, out_ch, norm_groups, dtype)
+        self.noise_proj = Dense(emb_dim, out_ch, dtype=dtype)
+        self.block2 = SR3Block(out_ch, out_ch, norm_groups, dtype)
+        self.res_conv = (Conv2d(in_ch, out_ch, 1, dtype=dtype)
+                         if in_ch != out_ch else None)
+
+    def forward(self, x, emb, b: int):
+        h = self.block1(x, b)
+        h = h + self.noise_proj(emb)[:, :, None, None].to(h.dtype)
+        h = self.block2(h, b)
+        if self.res_conv is not None:
+            x = self.res_conv(x)
+        return h + x
+
+
+class SR3SelfAttention(nn.Module):
+    """Full spatial self-attention scaled by 1/√C over the WHOLE channel dim
+    — the reference's scale (sr3.py:185), kept on purpose."""
+
+    def __init__(self, channels: int, n_head: int = 1, norm_groups: int = 32,
+                 dtype=torch.float32):
+        super().__init__()
+        self.n_head = n_head
+        self.norm = GroupNorm32(channels, norm_groups)
+        self.qkv = Dense(channels, 3 * channels, use_bias=False, dtype=dtype)
+        self.out = Dense(channels, channels, dtype=dtype)
+
+    def forward(self, x, b: int):
+        n, c, h, w = x.shape
+        nh = self.n_head
+        t = nhwc(self.norm(x, b)).reshape(n, h * w, c)
+        qkv = self.qkv(t).reshape(n, h * w, nh, 3, c // nh)
+        q, k, v = qkv.unbind(dim=3)
+        out = dot_product_attention(q, k, v, scale=1.0 / math.sqrt(c))
+        out = self.out(out.reshape(n, h * w, c))
+        return x + nchw(out.reshape(n, h, w, c))

@@ -1,0 +1,70 @@
+"""Build the CUDA sources in ``flair_tpu_torch/csrc/`` at first use.
+
+Each ``.cu`` file is compiled by ``nvcc`` for ``sm_90a`` into a shared
+library with a plain C interface and loaded with ``ctypes``. Libraries are
+keyed by a hash of their source, live under ``<checkout>/build/kernels``
+(listed in ``.gitignore``) and are reused by later calls in the same
+checkout.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+
+CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+                    "csrc")
+BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
+                         "kernels")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LOCK = threading.Lock()
+_LIBS: dict = {}
+
+
+def _nvcc() -> str:
+    cand = [os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                         "bin", "nvcc"), shutil.which("nvcc")]
+    for c in cand:
+        if c and os.path.exists(c):
+            return c
+    raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                       "machine with the CUDA toolkit")
+
+
+def library_path(name: str) -> str:
+    src = os.path.join(CSRC, name + ".cu")
+    with open(src, "rb") as f:
+        digest = hashlib.sha256(f.read()).hexdigest()[:12]
+    return os.path.join(BUILD_DIR, f"lib{name}_{digest}.so")
+
+
+def compile_source(name: str) -> str:
+    """Compile ``csrc/<name>.cu`` unless its library exists; returns the
+    compiler's report ("" when the library was reused)."""
+    out = library_path(name)
+    if os.path.exists(out):
+        return ""
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{out}.{os.getpid()}.tmp"
+    r = subprocess.run(
+        [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(CSRC, name + ".cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if r.returncode != 0:
+        raise RuntimeError(f"nvcc failed for {name}.cu:\n{r.stdout}")
+    os.replace(tmp, out)
+    return r.stdout
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+    with _LOCK:
+        if name not in _LIBS:
+            compile_source(name)
+            _LIBS[name] = ctypes.CDLL(library_path(name))
+        return _LIBS[name]
