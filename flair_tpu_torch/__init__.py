@@ -4,10 +4,13 @@ Same sub-package layout and module names as ``flair_tpu`` so every module
 has an obvious counterpart:
 
 - ``flair_tpu_torch.ops``        — primitives (embeddings, norms, resizes,
-                                   warps, attention) and the deformable conv,
-                                   whose CUDA kernel lives in ``csrc/``.
-- ``flair_tpu_torch.operators``  — SVD degradation operators (x8/x16 SRConv).
-- ``flair_tpu_torch.models``     — BicubicUNet, SPyNet, BasicVSR++, blocks.
+                                   warps, DCT/JPEG), and the deformable conv
+                                   and flash attention, whose CUDA kernels
+                                   live in ``csrc/``.
+- ``flair_tpu_torch.operators``  — degradation operators (x8/x16 SVD SRConv,
+                                   gaussian/jpeg PseudoSR).
+- ``flair_tpu_torch.models``     — BicubicUNet, BlurUNet, SPyNet, BasicVSR++,
+                                   blocks.
 - ``flair_tpu_torch.diffusion``  — schedules, respacing, guided sampler.
 - ``flair_tpu_torch.pipeline``   — windowed video restoration driver.
 - ``flair_tpu_torch.utils``      — flax → torch weight conversion, devices,

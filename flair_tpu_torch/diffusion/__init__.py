@@ -19,6 +19,7 @@ from .gaussian import (
     predict_eps_from_xstart,
     predict_xstart_from_eps,
     q_sample,
+    scale_timesteps,
     sr3_noise_level,
 )
 from .sampler import (

@@ -190,6 +190,15 @@ def map_timesteps(d: Diffusion, t) -> torch.Tensor:
     return _index(d.timestep_map, t)
 
 
+def scale_timesteps(d: Diffusion, t) -> torch.Tensor:
+    """Optional 0..1000 rescaling of ORIGINAL (mapped) indices
+    (gaussian_diffusion.py:367-370, respace.py:158-159)."""
+    t = torch.as_tensor(t)
+    if d.rescale_timesteps:
+        return t.float() * (1000.0 / d.original_num_steps)
+    return t
+
+
 def p_mean_variance(d: Diffusion, model_output, x, t,
                     clip_denoised: bool = True) -> dict:
     """Reverse-step moments from a raw denoiser output

@@ -37,6 +37,15 @@ def _lecun_(w: torch.Tensor, fan_in: int) -> None:
     nn.init.normal_(w, std=1.0 / math.sqrt(max(fan_in, 1)))
 
 
+def random_init_(module: nn.Module, seed: int = 0, scale: float = 0.02) -> None:
+    """Seeded random weights: every parameter N(0, scale²), as the JAX CLI
+    draws them when no checkpoint is given (cli.py:93-106)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for p in module.parameters():
+            p.copy_(torch.randn(p.shape, generator=gen) * scale)
+
+
 class Conv2d(nn.Module):
     """k×k conv over (N, C, H, W); padding defaults to SAME (k // 2)."""
 

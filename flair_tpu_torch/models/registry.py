@@ -1,7 +1,7 @@
 """Model registry: denoisers and temporal modules by name.
 
 Counterpart of ``flair_tpu/models/registry.py``; this package registers
-``bicubic_unet``, ``spynet`` and ``basicvsrpp``."""
+``bicubic_unet``, ``blur_unet``, ``spynet`` and ``basicvsrpp``."""
 
 from __future__ import annotations
 
@@ -22,12 +22,12 @@ def register_model(name: str):
 
 def get_model(name: str, **kwargs):
     if name not in _REGISTRY:
-        from . import sr3, spynet, vsrpp  # noqa: F401  (registration)
+        from . import adm, sr3, spynet, vsrpp  # noqa: F401  (registration)
     if name not in _REGISTRY:
         raise KeyError(f"unknown model: {name}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name](**kwargs)
 
 
 def list_models():
-    from . import sr3, spynet, vsrpp  # noqa: F401
+    from . import adm, sr3, spynet, vsrpp  # noqa: F401
     return sorted(_REGISTRY)

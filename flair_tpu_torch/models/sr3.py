@@ -26,7 +26,7 @@ import torch.nn.functional as F
 from ..ops.embed import sr3_noise_embedding
 from ..ops.resize import resize_bilinear_aa
 from .blocks import ResBlock, SR3ResnetBlock, SR3SelfAttention
-from .common import Conv2d, Dense, GroupNorm32, nchw, nhwc, silu
+from .common import Conv2d, Dense, GroupNorm32, nchw, nhwc, random_init_, silu
 from .registry import register_model
 from .spynet import SPyNet
 from .temporal import TemporalAttention, TemporalWrapper2
@@ -159,13 +159,7 @@ class BicubicUNet(nn.Module):
         self.final_norm = GroupNorm32(ch, norm_groups)
         self.final_conv = Conv2d(ch, out_channel, 3)
 
-    def random_init(self, seed: int = 0, scale: float = 0.02) -> None:
-        """Seeded random weights: every parameter N(0, scale²), as the JAX
-        CLI draws them when no checkpoint is given (cli.py:93-106)."""
-        gen = torch.Generator().manual_seed(seed)
-        with torch.no_grad():
-            for _, p in self.named_parameters():
-                p.copy_(torch.randn(p.shape, generator=gen) * scale)
+    random_init = random_init_
 
     def compute_flows(self, rnn_input, enable_cross_frames: bool = True):
         """{res: (fwd, bwd, fwd2, bwd2)} SPyNet flows of a (B, T, H, W, 3)

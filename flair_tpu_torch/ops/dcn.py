@@ -27,19 +27,13 @@ SUPPORTED_COUT = (32, 64, 128)
 _CK = 32  # input channels per kernel K step (csrc/dcn_raw.cu)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = build.load(KERNEL)
-    if not getattr(lib, "_flair_typed", False):
-        p = ctypes.c_void_p
-        i = ctypes.c_int
-        lib.dcn_raw_forward.argtypes = [
-            i, p, p, p, p, p, p, p, p, p,
-            i, i, i, i, i, i, i, ctypes.c_longlong, ctypes.c_float, p]
-        lib.dcn_raw_forward.restype = i
-        lib.dcn_error_string.argtypes = [i]
-        lib.dcn_error_string.restype = ctypes.c_char_p
-        lib._flair_typed = True
-    return lib
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_SIGNATURES = {
+    "dcn_raw_forward": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                         _I, _I, _I, _I, _I, _I, _I, ctypes.c_longlong,
+                         ctypes.c_float, _P], _I),
+    "dcn_error_string": ([_I], ctypes.c_char_p),
+}
 
 
 def _check(x, res_y, res_x, mask_logits, flow_y, flow_x, weight, bias):
@@ -113,7 +107,7 @@ def deform_conv2d_raw(x, res_y, res_x, mask_logits, flow_y, flow_x, weight,
     b32 = (torch.zeros(cout, device=x.device) if bias is None
            else bias.float().contiguous())
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
-    lib = _lib()
+    lib = build.load(KERNEL, _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         rc = lib.dcn_raw_forward(

@@ -1,9 +1,16 @@
-"""Interpolation resizes (torch F.interpolate semantics) as separable matmuls.
+"""Resizes: MATLAB-style antialiased decimation and interpolation resizes.
 
-Counterpart of the separable-matrix half of ``flair_tpu/ops/resize.py``
-(lines 296-387). The (out, in) resample matrices are built on the host in
-float64 numpy — the port keeps its own copy of that code — and applied as
-two einsums over the H and W axes of channels-last (..., H, W, C) tensors.
+Counterpart of ``flair_tpu/ops/resize.py``; the port keeps its own copy of
+the host code:
+- the imresize half (lines 37-288): cubic kernel synthesis, the
+  pre/post decimation phases and the centre-of-mass recentring of a
+  supplied blur kernel run on the host in float64 numpy (scipy as in the
+  JAX module); the device side is a depthwise filter (grouped ``F.conv2d``)
+  plus strided sampling — the pseudoSR ``A`` operator;
+- the separable-matrix half (lines 296-387): (out, in) resample matrices
+  built on the host in float64 and applied as two einsums over the H and W
+  axes of channels-last (..., H, W, C) tensors (torch F.interpolate
+  semantics).
 """
 
 from __future__ import annotations
@@ -12,6 +19,7 @@ import functools
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def keys_cubic(x: np.ndarray, a: float = -0.75) -> np.ndarray:
@@ -21,6 +29,194 @@ def keys_cubic(x: np.ndarray, a: float = -0.75) -> np.ndarray:
     inner = (a + 2) * x3 - (a + 3) * x2 + 1
     outer = a * x3 - 5 * a * x2 + 8 * a * x - 4 * a
     return np.where(x <= 1, inner, np.where(x < 2, outer, 0.0))
+
+
+# ---------------------------------------------------------------------------
+# imresize: kernel synthesis (host, float64)
+# ---------------------------------------------------------------------------
+
+
+@functools.lru_cache(maxsize=None)
+def cubic_kernel_1d(sf: int, a: float = -0.75) -> np.ndarray:
+    """1-D upscale-by-``sf`` cubic kernel trimmed to its nonzero support:
+    the centre row of the reference's cv2 delta-image construction
+    (imresize_pseudoSR.py:96-102), the Keys kernel sampled at
+    x_i = (i + 0.5)/sf − 0.5 − c."""
+    n = 11  # delta image size, as in the reference
+    c = int(np.ceil(n / 2)) - 1
+    i = np.arange(sf * n, dtype=np.float64)
+    k = keys_cubic((i + 0.5) / sf - 0.5 - c, a)
+    nz = np.nonzero(np.abs(k) > 0)[0]
+    return k[nz[0]:nz[-1] + 1]
+
+
+def cubic_kernel_2d(sf: int, a: float = -0.75) -> np.ndarray:
+    """Separable 2-D cubic upscale kernel (imresize_pseudoSR.py:96-102)."""
+    k = cubic_kernel_1d(sf, a)
+    return np.outer(k, k)
+
+
+def calc_strides(shape, factor, align_center: bool = False):
+    """(pre_stride, post_stride) decimation phases for an integer scale
+    factor (imresize_pseudoSR.py:81-94), each a length-2 int64 array."""
+    integer_factor = int(np.maximum(factor, 1.0 / factor))
+    if align_center:
+        half = np.ceil(np.array(shape[:2], dtype=np.float64) / 2
+                       * (factor if factor > 1 else 1))
+        pre = np.mod(half, integer_factor)
+        pre[pre == 0] = integer_factor
+        pre = (pre - 1).astype(np.int64)
+        post = integer_factor - pre - 1
+    else:
+        post = (np.floor(integer_factor / 2) * np.ones(2)).astype(np.int64)
+        pre = (integer_factor - post - 1).astype(np.int64)
+    return pre, post
+
+
+def _energy_distribution(kern: np.ndarray) -> np.ndarray:
+    """Relative L2 energy kept when trimming n-pixel margins
+    (imresize_pseudoSR.py:159-161)."""
+    total = np.sqrt(np.sum(kern ** 2))
+    vals = [total] + [np.sqrt(np.sum(kern[n:-n, n:-n] ** 2))
+                      for n in range(1, int(np.ceil(kern.shape[0] / 2)))]
+    return np.asarray(vals) / total
+
+
+def center_mass(kernel: np.ndarray, ds_factor: int) -> np.ndarray:
+    """Recentre a square blur kernel on its centre of mass, then trim it to
+    a conv-valid size that fits ``ds_factor`` (imresize_pseudoSR.py:121-157).
+    Host float64."""
+    assert kernel.shape[0] == kernel.shape[1], "square kernels only"
+    from scipy.signal import convolve2d
+
+    n = kernel.shape[0]
+    xg, yg = np.meshgrid(np.arange(n), np.arange(n))
+    xg = convolve2d(xg, kernel, mode="valid") + 1
+    yg = convolve2d(yg, kernel, mode="valid") + 1
+    x_pad, y_pad = 2 * (n / 2 - xg), 2 * (n / 2 - yg)
+    padding_diff = np.round(np.abs(y_pad)) - np.round(np.abs(x_pad))
+    pre_x, post_x = np.maximum(0, -x_pad), np.maximum(0, x_pad)
+    pre_y, post_y = np.maximum(0, -y_pad), np.maximum(0, y_pad)
+
+    def r2i(v):
+        return int(np.round(np.asarray(v).item()))
+
+    def split_padding(pre, post, diff):
+        offset_right = np.round(post) - post - (np.round(pre) - pre)
+        pre, post = r2i(pre), r2i(post)
+        if offset_right > 0:
+            post += int(np.ceil(diff / 2))
+            pre += int(np.floor(diff / 2))
+        else:
+            pre += int(np.ceil(diff / 2))
+            post += int(np.floor(diff / 2))
+        return pre, post
+
+    if padding_diff > 0:
+        pre_y, post_y = r2i(pre_y), r2i(post_y)
+        pre_x, post_x = split_padding(pre_x, post_x, padding_diff)
+    elif padding_diff < 0:
+        pre_x, post_x = r2i(pre_x), r2i(post_x)
+        pre_y, post_y = split_padding(pre_y, post_y, -padding_diff)
+    else:
+        pre_x, post_x = r2i(pre_x), r2i(post_x)
+        pre_y, post_y = r2i(pre_y), r2i(post_y)
+    kernel = np.pad(kernel, ((pre_y, post_y), (pre_x, post_x)))
+    assert kernel.shape[0] == kernel.shape[1]
+
+    margins = (np.argwhere(_energy_distribution(kernel) < 0.99)[0][0]
+               * np.ones(2, dtype=np.int64))
+    idx = 0
+    while np.mod(kernel.shape[0] - np.sum(margins) - 1
+                 + np.mod(ds_factor + 1, 2), ds_factor) != 0:
+        margins[idx] -= 1
+        idx = (idx + 1) % 2
+    kernel = kernel[margins[0]:-margins[1], margins[0]:-margins[1]]
+    return kernel / np.sum(kernel)
+
+
+def imresize_kernel(ds_factor: int, blur_kernel: np.ndarray | None = None,
+                    kernel_indx: int = 0):
+    """(ds_kernel, pre_stride, post_stride) of the pseudoSR downscale
+    (pseudoSR.py:332-343 Return_kernel, imresize_pseudoSR.py:10-62):
+
+    - ``blur_kernel is None`` → the pure cubic kernel;
+    - ``kernel_indx >= 8`` → the supplied kernel, recentred, replaces it
+      (the demo's kernels_12.mat[0, 3] path);
+    - ``kernel_indx < 8`` → cubic ⊛ blur kernel.
+
+    ``ds_kernel`` is float32, sums to 1 and is already rotated by 180° for
+    downscaling (which moves the even-factor padding to the other side)."""
+    from scipy.signal import convolve2d
+
+    sf = int(ds_factor)
+    pre, post = calc_strides((0, 0), sf)
+    post_padding = np.maximum(0, pre - post)
+    pre_padding = np.maximum(0, post - pre)
+    if blur_kernel is None:
+        up = cubic_kernel_2d(sf)
+    elif kernel_indx >= 8:
+        assert abs(1.0 - np.sum(blur_kernel)) < np.finfo(np.float32).eps
+        up = center_mass(np.asarray(blur_kernel, np.float64), sf) * sf ** 2
+    else:
+        up = convolve2d(cubic_kernel_2d(sf), np.asarray(blur_kernel, np.float64))
+    up = np.pad(up, ((pre_padding[0], post_padding[0]),
+                     (pre_padding[1], post_padding[1])))
+    ds_kernel = (up[::-1, ::-1] / sf ** 2).astype(np.float32)
+    return ds_kernel, pre, post
+
+
+# ---------------------------------------------------------------------------
+# imresize: device side
+# ---------------------------------------------------------------------------
+
+_TORCH_PAD = {"reflect": "reflect", "edge": "replicate", "zero": "constant"}
+
+
+def depthwise_filter2d(x: torch.Tensor, kernel, *, padding: str = "reflect",
+                       correlate: bool = False) -> torch.Tensor:
+    """One shared 2-D kernel applied to every channel of NHWC ``x`` as a
+    grouped ``F.conv2d``. True convolution by default (the kernel flipped,
+    the reference's rot90(k, 2)-then-correlate, imresize_pseudoSR.py:165-178);
+    ``padding``: 'reflect' (no edge repeat) | 'edge' | 'zero', each by half
+    the kernel size.
+
+    ``F.pad(mode="reflect")`` needs the pad smaller than the padded size,
+    which ``jnp.pad`` does not: with the gaussian/jpeg ×4 kernel (9×9 once
+    recentred and trimmed) a reflect-padded image must be at least 5 pixels
+    wide. 'edge' ('replicate') and 'zero' have no such limit, so the 39×39
+    inverse filter pads a 16² frame by 19."""
+    if not isinstance(kernel, torch.Tensor):
+        kernel = torch.from_numpy(np.ascontiguousarray(kernel))
+    k = kernel.to(dtype=x.dtype, device=x.device)
+    if not correlate:
+        k = k.flip(0, 1)
+    kh, kw = k.shape
+    c = x.shape[-1]
+    v = F.pad(x.permute(0, 3, 1, 2), (kw // 2, kw // 2, kh // 2, kh // 2),
+              mode=_TORCH_PAD[padding])
+    y = F.conv2d(v, k.expand(c, 1, kh, kw).contiguous(), groups=c)
+    return y.permute(0, 2, 3, 1)
+
+
+def imresize_efficient(x: torch.Tensor, ds_kernel, ds_factor: int,
+                       pre_stride) -> torch.Tensor:
+    """Antialias filter (reflect padding) + phase-aligned decimation of NHWC
+    ``x``: the pseudoSR ``A`` operator (imresize_pseudoSR.py:163-178)."""
+    y = depthwise_filter2d(x, ds_kernel, padding="reflect")
+    return y[:, int(pre_stride[0])::ds_factor, int(pre_stride[1])::ds_factor]
+
+
+def matlab_imresize(x: torch.Tensor, ds_factor: int, blur_kernel=None,
+                    kernel_indx: int = 0) -> torch.Tensor:
+    """Full imresize, downscale path (imresize_pseudoSR.py:10-79)."""
+    k, pre, _ = imresize_kernel(ds_factor, blur_kernel, kernel_indx)
+    return imresize_efficient(x, k, ds_factor, pre)
+
+
+# ---------------------------------------------------------------------------
+# Interpolation resizes (torch F.interpolate semantics) as matmuls
+# ---------------------------------------------------------------------------
 
 
 @functools.lru_cache(maxsize=None)

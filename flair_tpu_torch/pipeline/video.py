@@ -7,12 +7,15 @@ scripts/video_sample.py:265-497):
   input upscaled to the output size;
 - the previous window's last OVERLAP reconstructed frames are pinned into
   pred_xstart at every step and dropped at stitch time;
-- SPyNet flows are computed once per window.
+- SPyNet flows are computed once per window;
+- the gaussian/jpeg tasks condition SPyNet on the bicubic-upscaled degraded
+  frames (video_sample.py:405-425) while the model input is the
+  area-upscaled ``low_res``; their correction is PseudoSR's null-space
+  step, with the JPEG round-trip for jpeg.
 
 The window loop and the step loop are plain Python (the JAX package's
 "steps" two-program dispatch and its scan forms collapse into one loop
-here). The face prior, the gaussian/jpeg tasks and multi-device meshes are
-not in this package yet.
+here). The face prior and multi-device meshes are not in this package yet.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 from ..diffusion.gaussian import Diffusion, make_task_diffusion, q_sample
 from ..diffusion.sampler import (
     GuidanceConfig, draw_noise, guided_sample_steps, make_guided_update)
-from ..operators.factory import get_operator, make_restore_fn_p
+from ..operators.factory import BLUR_TASKS, get_operator, make_restore_fn_p
 from ..ops.resize import resize_area, resize_bicubic
 from ..utils.device import resolve_device
 
@@ -102,6 +105,18 @@ def init_from_degraded(frames01: torch.Tensor, cfg: TaskConfig) -> torch.Tensor:
     return torch.clamp(resize(frames01, size), 0, 1) * 2.0 - 1.0
 
 
+def rnn_input_for(frames01: torch.Tensor, init: torch.Tensor,
+                  cfg: TaskConfig) -> torch.Tensor:
+    """The clip SPyNet's flows are computed from: for gaussian/jpeg the
+    bicubic upscale of the degraded [0,1] frames, in [-1, 1]
+    (video_sample.py:405-425); for the other tasks the conditioning
+    ``init`` itself (unet_new.py:1332-1333)."""
+    if cfg.task not in BLUR_TASKS:
+        return init
+    size = (cfg.output_size, cfg.output_size)
+    return torch.clamp(resize_bicubic(frames01, size) * 2.0 - 1.0, -1.0, 1.0)
+
+
 @torch.no_grad()
 def restore_video(
     degraded01: np.ndarray,
@@ -129,8 +144,9 @@ def restore_video(
     independent clips batched through the same model calls. Returns
     (T, H, W, 3) — or (B, T, H, W, 3) — in [0, 1].
     ``model_apply(x, t, low_res, rnn_input, vsrpp_weights, flows)`` is the
-    wrapped denoiser (``wrap_bicubic_model``). ``sampler``: "steps" (FLAIR's
-    ddpm ρ rule) or "ddim" (η-DDIM, for a respaced ``cfg.steps="ddimN"``).
+    wrapped denoiser (``wrap_bicubic_model`` / ``wrap_blur_model``).
+    ``sampler``: "steps" (FLAIR's ddpm ρ rule) or "ddim" (η-DDIM, for a
+    respaced ``cfg.steps="ddimN"``).
     ``pad_tail`` repeats the last frame to fill a short tail window.
     Noise: ``noise_fn(shape)`` when given, else ``generator``. Runs on
     ``device`` (default cuda; raises if CUDA is missing)."""
@@ -148,7 +164,7 @@ def restore_video(
         device=dev)
     nclips, t_all = frames.shape[0], frames.shape[1]
     flows_fn = getattr(model_apply, "flows_fn", None)
-    restore_p = make_restore_fn_p(cfg.task, operator)
+    restore_p = make_restore_fn_p(cfg.task, operator, jpeg_qf=cfg.jpeg_qf)
 
     def restore_fn_p(x0, degraded):
         flat = x0.reshape((x0.shape[0] * x0.shape[1],) + x0.shape[2:])
@@ -169,7 +185,8 @@ def restore_video(
                 nclips, win - length, *sl.shape[2:])], dim=1)
         tw = sl.shape[1]
         init = init_from_degraded(sl, cfg)
-        low_res = rnn_input = init
+        low_res = init
+        rnn_input = rnn_input_for(sl, init, cfg)
         degraded_pm1 = (sl * 2.0 - 1.0).reshape(nclips * tw, *sl.shape[2:])
         noise = draw_noise(init.shape, init, generator, noise_fn)
         t_init = d.num_timesteps - 1 if cfg.t_start == -1 else cfg.t_start

@@ -1,25 +1,26 @@
-"""Denoiser wrapper: spaced step → SR3 noise-level conditioning.
+"""Denoiser wrappers: spaced step → model conditioning.
 
-Counterpart of ``wrap_bicubic_model`` in ``flair_tpu/pipeline/wrappers.py``
-(respace._WrappedModel, respace.py:138-167): the sampler hands the spaced
-step t; the BicubicUNet receives ``sqrt_alphas_cumprod_prev[t+1]``.
+Counterpart of ``flair_tpu/pipeline/wrappers.py`` (respace._WrappedModel,
+respace.py:138-167): the sampler hands the spaced step t;
+- the BicubicUNet receives the noise level ``sqrt_alphas_cumprod_prev[t+1]``;
+- the BlurUNet receives ``scale_timesteps(map_timesteps(t))``, the
+  original-schedule index, as int64 for every frame.
+
+Each wrapper carries ``.flows_fn(rnn_input)`` — the SPyNet flows, computed
+once per window — and ``.model``.
 """
 
 from __future__ import annotations
 
-from ..diffusion.gaussian import Diffusion, sr3_noise_level
+import torch
+
+from ..diffusion.gaussian import (
+    Diffusion, map_timesteps, scale_timesteps, sr3_noise_level)
 
 
-def wrap_bicubic_model(d: Diffusion, model, *, enable_cross_frames: bool = True):
-    """``apply(x, t, low_res, rnn_input, vsrpp_weights, flows=None) → eps``
-    for a BicubicUNet, all tensors (B, T, H, W, 3). The callable also
-    carries ``.flows_fn(rnn_input)`` — the once-per-window SPyNet flows —
-    and ``.model``."""
-
+def _wrap(model, cond, enable_cross_frames: bool):
     def apply(x, t, low_res, rnn_input, vsrpp_weights, flows=None):
-        b, tw = x.shape[0], x.shape[1]
-        lvl = sr3_noise_level(d, t).to(x.device).expand(b, tw)
-        return model(x, lvl, low_res, rnn_input=rnn_input,
+        return model(x, cond(t, x), low_res, rnn_input=rnn_input,
                      enable_cross_frames=enable_cross_frames,
                      vsrpp_weights=vsrpp_weights, flows=flows)
 
@@ -29,3 +30,25 @@ def wrap_bicubic_model(d: Diffusion, model, *, enable_cross_frames: bool = True)
     apply.flows_fn = flows_fn
     apply.model = model
     return apply
+
+
+def wrap_bicubic_model(d: Diffusion, model, *, enable_cross_frames: bool = True):
+    """``apply(x, t, low_res, rnn_input, vsrpp_weights, flows=None) → eps``
+    for a BicubicUNet, all tensors (B, T, H, W, 3)."""
+
+    def cond(t, x):
+        return sr3_noise_level(d, t).to(x.device).expand(x.shape[0], x.shape[1])
+
+    return _wrap(model, cond, enable_cross_frames)
+
+
+def wrap_blur_model(d: Diffusion, model, *, enable_cross_frames: bool = True):
+    """``apply(x, t, low_res, rnn_input, vsrpp_weights, flows=None) →
+    (eps, variance fraction)`` (B, T, H, W, 6) for a BlurUNet."""
+
+    def cond(t, x):
+        t_orig = scale_timesteps(d, map_timesteps(d, t))
+        return t_orig.to(device=x.device, dtype=torch.int64).expand(
+            x.shape[0], x.shape[1])
+
+    return _wrap(model, cond, enable_cross_frames)

@@ -61,10 +61,16 @@ def compile_source(name: str) -> str:
     return r.stdout
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, building it if needed."""
+def load(name: str, signatures: dict) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it if needed.
+    ``signatures`` maps each exported function to its (argtypes, restype),
+    declared once when the library is first loaded."""
     with _LOCK:
         if name not in _LIBS:
             compile_source(name)
-            _LIBS[name] = ctypes.CDLL(library_path(name))
+            lib = ctypes.CDLL(library_path(name))
+            for fn, (argtypes, restype) in signatures.items():
+                getattr(lib, fn).argtypes = argtypes
+                getattr(lib, fn).restype = restype
+            _LIBS[name] = lib
         return _LIBS[name]

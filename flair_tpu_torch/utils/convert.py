@@ -7,8 +7,9 @@ transposes. Input is the flat flax dict — the format of
 
 - the ``params/`` collection prefix and the ``Conv_0`` / ``Dense_0`` scopes
   of the flax wrapper modules are dropped;
-- conv kernels HWIO → OIHW, the (3, 1, 1) Conv3d kernels THWIO → OITHW,
-  Dense kernels (in, out) → (out, in); all become ``weight``;
+- conv kernels HWIO → OIHW, Conv3d kernels ((3, 1, 1) in the BicubicUNet,
+  3×3×3 in the BlurUNet) DHWIO → OIDHW, Dense kernels (in, out) →
+  (out, in); all become ``weight``;
 - norm ``scale`` → ``weight``;
 - the deformable alignment's ``weight`` (HWIO) → OIHW.
 
@@ -52,4 +53,10 @@ def from_flax(flat: Mapping[str, np.ndarray]) -> dict:
 
 def from_flax_bicubic_unet(flat: Mapping[str, np.ndarray]) -> dict:
     """Flat flax BicubicUNet params → ``BicubicUNet`` state_dict."""
+    return from_flax(flat)
+
+
+def from_flax_blur_unet(flat: Mapping[str, np.ndarray]) -> dict:
+    """Flat flax BlurUNet params → ``BlurUNet`` state_dict (the attention
+    ``qkv`` Dense keeps its per-head (q, k, v) interleave)."""
     return from_flax(flat)

@@ -2,8 +2,10 @@
 
 Schedule tables and respacing (exact / f32-rounding), ``p_sample`` under
 both update rules with injected noise, the guided loop with a stub
-denoiser fed the same noise in both packages, and SRConv ``A`` / ``A_pinv``
-at ×8 and ×16 — all ≤1e-5 absolute in float32.
+denoiser fed the same noise in both packages, SRConv ``A`` / ``A_pinv``
+at ×8 and ×16, the LEARNED_RANGE moments of a 6-channel output,
+``scale_timesteps`` and the gaussian/jpeg restore closure — all ≤1e-5
+absolute in float32.
 """
 
 import numpy as np
@@ -140,13 +142,73 @@ def test_srconv_a_and_pinv(task):
                                atol=ATOL)
 
 
-@pytest.mark.parametrize("entry", ["get_operator", "make_task_diffusion"])
+@pytest.mark.parametrize("entry", ["get_operator", "get_operator_gaussian",
+                                   "make_task_diffusion"])
 def test_entry_points_default_to_cuda(monkeypatch, entry):
     """With no device given an entry point asks for CUDA, and without it
     raises rather than continuing on the CPU."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     call = {"get_operator": lambda: t_get_operator("x8_bicubic", 64),
+            "get_operator_gaussian": lambda: t_get_operator("gaussian", 64),
             "make_task_diffusion":
                 lambda: td.make_task_diffusion("x8_bicubic", "ddim4")}[entry]
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         call()
+
+
+@pytest.mark.parametrize("steps", ["ddim25", "100"])
+def test_p_mean_variance_learned_range_six_channels(steps):
+    """The gaussian/jpeg schedule: the BlurUNet's 6-channel output is (ε,
+    variance fraction in [-1, 1]); the fraction interpolates the log
+    variance between the clipped posterior and β, per batch timestep."""
+    dt = td.make_task_diffusion("gaussian", steps, device="cpu")
+    dj = jd.make_task_diffusion("gaussian", steps)
+    assert dt.model_var_type == td.ModelVarType.LEARNED_RANGE
+    x = rand(20, 2, 3, 4, 5, 3)
+    mo = np.concatenate([rand(21, 2, 3, 4, 5, 3),
+                         np.tanh(rand(22, 2, 3, 4, 5, 3))], -1)
+    t = np.array([0, dt.num_timesteps - 1])
+    out_t = td.p_mean_variance(dt, torch.from_numpy(mo), torch.from_numpy(x),
+                               torch.from_numpy(t))
+    out_j = jd.p_mean_variance(dj, jnp.asarray(mo), jnp.asarray(x),
+                               jnp.asarray(t, jnp.int32))
+    for k in ("mean", "variance", "log_variance", "pred_xstart"):
+        np.testing.assert_allclose(
+            np.broadcast_to(out_t[k].numpy(), x.shape),
+            np.broadcast_to(np.asarray(out_j[k]), x.shape), rtol=1e-5,
+            atol=ATOL)
+
+
+@pytest.mark.parametrize("rescale", [False, True])
+def test_scale_timesteps(rescale):
+    """The BlurUNet's conditioning: the original-schedule index of a spaced
+    step, rescaled to 0..1000 when the diffusion asks for it."""
+    betas = td.get_named_beta_schedule("face_blur", 1000)
+    use = td.space_timesteps(1000, "ddim25")
+    dt = td.make_diffusion(betas, rescale_timesteps=rescale, use_timesteps=use,
+                           device="cpu")
+    dj = jd.make_diffusion(betas, rescale_timesteps=rescale, use_timesteps=use)
+    t = np.arange(dt.num_timesteps)
+    out_t = td.scale_timesteps(dt, td.map_timesteps(dt, torch.from_numpy(t)))
+    out_j = jd.scale_timesteps(dj, jd.map_timesteps(dj, jnp.asarray(t)))
+    np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL)
+    assert out_t.dtype == (torch.float32 if rescale else torch.int64)
+
+
+@pytest.mark.parametrize("task", ["gaussian", "jpeg"])
+def test_blur_operator_default_and_restore_fn(task):
+    """get_operator builds PseudoSR for the blur tasks; the restore closure
+    adds the JPEG round-trip for jpeg only."""
+    from flair_tpu.operators.factory import make_restore_fn_p as j_restore
+    from flair_tpu_torch.operators import PseudoSR
+    from flair_tpu_torch.operators.factory import make_restore_fn_p
+
+    op_t = t_get_operator(task, 64, device="cpu")
+    op_j = j_get_operator(task, 64)
+    assert isinstance(op_t, PseudoSR)
+    x0 = np.tanh(rand(23, 2, 64, 64, 3))
+    y = np.tanh(rand(24, 2, 16, 16, 3))
+    out_t = make_restore_fn_p(task, op_t, jpeg_qf=60)(
+        torch.from_numpy(x0), torch.from_numpy(y))
+    out_j = j_restore(task, op_j, jpeg_qf=60)(jnp.asarray(x0), jnp.asarray(y))
+    assert np.mean(np.abs(out_t.numpy() - np.asarray(out_j))) <= 1e-5

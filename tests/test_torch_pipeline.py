@@ -101,12 +101,83 @@ def test_restore_video_matches_flair_tpu(monkeypatch, gold_name, sampler,
     assert p >= 45.0, p
 
 
+BLUR_KW = dict(image_size=64, in_channels=6, model_channels=32,
+               out_channels=6, num_res_blocks=1, attention_resolutions=(2,),
+               rnn_resolutions=(1,), channel_mult=(1, 2), num_heads=1,
+               num_head_channels=8, use_scale_shift_norm=True,
+               temporal_frames=5)
+
+
+def blur_task_config(pkg_configs, meta, steps):
+    """The blur golden's guidance (γ schedule live: ζ = 1, its noise level,
+    the jpeg round-trip at the golden's qf) at 16² → 64²."""
+    return dataclasses.replace(
+        pkg_configs[meta.get("task", "gaussian")], output_size=64,
+        input_size=16, steps=steps, w=meta["w"], rho=meta["rho"],
+        zeta=meta["zeta"], tau=0, noise_level=meta["noise_level"],
+        jpeg_qf=meta.get("jpeg_qf", -1))
+
+
+@pytest.mark.parametrize("gold_name,sampler,steps", [
+    ("gaussian_s64", "ddim", "ddim4"), ("jpeg_s64", "steps", "3")])
+def test_restore_video_blur_tasks_match_flair_tpu(monkeypatch, gold_name,
+                                                  sampler, steps):
+    """The gaussian / jpeg branch: area-upscaled conditioning, SPyNet on
+    the bicubic-upscaled clip, PseudoSR's null-space correction (with the
+    JPEG round-trip for jpeg), 6-channel LEARNED_RANGE output. The JAX
+    BlurUNet uses its exact DCN (``dcn_patch_size=None``)."""
+    from flair_tpu import diffusion as jd
+    from flair_tpu.models.adm import BlurUNet as JB
+    from flair_tpu.pipeline import video as jvideo
+    from flair_tpu.pipeline.wrappers import wrap_blur_model as j_wrap
+    from flair_tpu.utils.checkpoint import unflatten_params
+    from flair_tpu_torch import diffusion as td
+    from flair_tpu_torch.models.adm import BlurUNet
+    from flair_tpu_torch.pipeline import video as tvideo
+    from flair_tpu_torch.pipeline.wrappers import wrap_blur_model
+    from flair_tpu_torch.utils.convert import from_flax_blur_unet
+
+    _, meta, flat = golden(gold_name)
+    clip = np.random.default_rng(1).uniform(0, 1, (4, 16, 16, 3)).astype(
+        np.float32)
+
+    def guidance(pkg, cfg):
+        return pkg.GuidanceConfig(use_aux=False, w=cfg.w, rho=cfg.rho, tau=0,
+                                  zeta=cfg.zeta, noise_level=cfg.noise_level)
+
+    cfg_t = blur_task_config(tvideo.TASK_CONFIGS, meta, steps)
+    d_t = td.make_task_diffusion(cfg_t.task, cfg_t.steps, device="cpu")
+    model = BlurUNet(**BLUR_KW)
+    model.load_state_dict(from_flax_blur_unet(flat))
+    out_t = tvideo.restore_video(
+        clip, cfg_t, wrap_blur_model(d_t, model), diffusion=d_t,
+        guidance=guidance(td, cfg_t), win=3, overlap=1, sampler=sampler,
+        device="cpu", noise_fn=lambda s: np.zeros(s, np.float32))
+
+    cfg_j = blur_task_config(jvideo.TASK_CONFIGS, meta, steps)
+    d_j = jd.make_task_diffusion(cfg_j.task, cfg_j.steps)
+    apply = j_wrap(d_j, JB(**BLUR_KW, dcn_patch_size=None),
+                   unflatten_params(flat))
+    monkeypatch.setattr(jax.random, "normal",
+                        lambda key, shape=None, dtype=jnp.float32:
+                        jnp.zeros(shape if shape is not None else (), dtype))
+    out_j = jvideo.restore_video(
+        clip, cfg_j, apply, diffusion=d_j,
+        guidance=guidance(jd, cfg_j),
+        win=3, overlap=1, sampler=sampler)
+    assert out_t.shape == out_j.shape == (4, 64, 64, 3)
+    p = psnr(out_t, out_j)
+    assert p >= 45.0, p
+
+
 def test_port_imports_neither_jax_nor_flair_tpu():
     code = (
         "import sys\n"
         "import flair_tpu_torch\n"
         "import flair_tpu_torch.diffusion, flair_tpu_torch.models.sr3\n"
+        "import flair_tpu_torch.models.adm, flair_tpu_torch.ops.jpeg\n"
         "import flair_tpu_torch.operators, flair_tpu_torch.ops.dcn\n"
+        "import flair_tpu_torch.operators.pseudo_sr\n"
         "import flair_tpu_torch.pipeline.video\n"
         "import flair_tpu_torch.pipeline.wrappers\n"
         "import flair_tpu_torch.utils.convert\n"
