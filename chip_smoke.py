@@ -13,7 +13,10 @@ Phases, one JSON line each (a record per shape for the kernels):
   kernel_dcn   csrc/dcn_raw.cu vs ops/deform.py at both main-path shapes,
                max residue magnitude 5 (x8 path) and 10 (gaussian path)
   kernel_flash csrc/flash_attn.cu vs ops/attention.dot_product_attention at
-               the BlurUNet's three attention shapes (bf16) and one f32 row
+               the BlurUNet's three attention shapes (bf16) and one f32 row,
+               timed beside SDPA (and the kernel SDPA ran, from the
+               profiler); then correctness-only rows at ragged S on both
+               sides of each query-tile switch and at D = 32, V a ramp
   slice_small  the x8 test configuration on cuda (kernel) vs cpu (plain)
   slice_small_blur  the gaussian and jpeg test configurations (goldens'
                widths, 32-channel heads) on cuda (both kernels) vs cpu
@@ -36,6 +39,8 @@ import dataclasses
 import json
 import math
 import os
+import re
+import shutil
 import subprocess
 import sys
 import time
@@ -80,6 +85,11 @@ FLASH_SHAPES = ((1024, 4, torch.bfloat16, 5), (256, 8, torch.bfloat16, 5),
 # twin: bf16 rounds P before P·V and rounds the output; f32 differs by the
 # order of its sums and exp2f
 FLASH_TOL = {torch.bfloat16: (1e-2, 2e-2), torch.float32: (1e-5, 1e-5)}
+# correctness-only K2 rows, bf16, FLASH_N frames: (S, heads, D). The kernel
+# takes 16 / 64 / 128-query tiles for S <= 64 / <= 256 / above; V is a ramp
+# in (key, d), so a transposed V fragment cannot pass as plausible output.
+FLASH_EDGE = (tuple((s, 4, 64) for s in (1, 63, 65, 127, 129, 1000))
+              + tuple((s, 4, 32) for s in (50, 200, 1000)))
 SMALL_PSNR_DB = 50.0   # cuda kernel vs cpu plain, f32 end to end
 FULL_STEPS = "ddim25"
 SLEEP_CYCLES_PER_CALL = 400_000   # ~0.2 ms at the H100's SM clock
@@ -134,6 +144,47 @@ def phase_device(ctx):
           "torch": torch.__version__, "cuda": torch.version.cuda})
 
 
+def ptxas_report(log: str) -> dict:
+    """Per kernel of one nvcc ``-Xptxas -v`` log: registers a thread, spill
+    bytes (stores + loads) and static shared memory, keyed by the kernel's
+    demangled name without its parameter list (the mangled name where
+    cu++filt is missing)."""
+    rep, fn = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", ln)
+        if m:
+            fn = m.group(1)
+            rep[fn] = {}
+            continue
+        if fn is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            rep[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            rep[fn]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", ln)
+            rep[fn]["static_smem"] = int(sm.group(1)) if sm else 0
+    if not rep:
+        return rep
+    filt = os.path.join(os.path.dirname(build._nvcc()), "cu++filt")
+    filt = filt if os.path.exists(filt) else shutil.which("c++filt")
+    if filt is None:
+        return rep
+    r = subprocess.run([filt], input="\n".join(rep), capture_output=True,
+                       text=True, timeout=60)
+    names = r.stdout.splitlines()
+    if r.returncode != 0 or len(names) != len(rep):
+        return rep
+    short = []
+    for n in names:   # "void <unnamed>::f<(int)64, ...>(args)" -> "f<64, ...>"
+        n = re.sub(r"\((?:unsigned )?\w+\)", "", n)
+        n = re.sub(r"\(anonymous namespace\)::|<unnamed>::", "", n)
+        short.append(n.split("(")[0].split(" ", 1)[-1])
+    return dict(zip(short, rep.values()))
+
+
 def phase_build(ctx):
     """One blocking nvcc per source, one after the other: the whole build
     takes about 10 s, too little for parallel builds to matter."""
@@ -141,11 +192,8 @@ def phase_build(ctx):
     t0 = time.time()
     logs = {n: build.compile_source(n) for n in names}
     secs = time.time() - t0
-    ptxas = {n: [ln.strip() for ln in log.splitlines()
-                 if "registers" in ln or "spill" in ln]
-             for n, log in logs.items()}
     emit({"phase": "build", "sources": names, "seconds": round(secs, 3),
-          "ptxas": ptxas})
+          "ptxas": {n: ptxas_report(log) for n, log in logs.items()}})
 
 
 def dcn_inputs(h, cin, cout, seed, device):
@@ -233,37 +281,80 @@ def flash_bound_ms(bh, s, d, dtype):
                                  "operations"), nbytes, flops
 
 
-def phase_kernel_flash(ctx):
-    """K2 on views of a packed seeded qkv, as the attention blocks give it,
-    against the f32 plain twin on the same inputs; times of the kernel, of
-    the plain twin in the working dtype, and of one SDPA call."""
-    torch.backends.cuda.matmul.allow_tf32 = False
+def flash_inputs(s, heads, d, dtype, seed, ramp=False):
+    """q, k, v as views of one seeded packed (FLASH_N, S, heads·3·D) qkv, as
+    the attention blocks give them; with ``ramp`` V is 2·key/(S-1) - 1 +
+    d/(2D) + h/10 instead of noise."""
     dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    qkv = torch.randn((FLASH_N, s, heads, 3, d), generator=gen, device=dev)
+    if ramp:
+        key = torch.arange(s, device=dev).view(s, 1, 1) / max(s - 1, 1)
+        col = torch.arange(d, device=dev).view(1, 1, d) / (2 * d)
+        head = torch.arange(heads, device=dev).view(1, heads, 1) / 10
+        qkv[..., 2, :] = 2 * key - 1 + col + head
+    qkv = qkv.reshape(FLASH_N, s, heads * 3 * d).to(dtype)
+    return qkv.view(FLASH_N, s, heads, 3, d).unbind(dim=3)
+
+
+def flash_error(q, k, v):
+    """One kernel launch against the f32 plain twin: (max abs, max abs over
+    the largest |output|). The launch is not counted."""
+    saved = flash_attention.launches
+    out = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    flash_attention.launches = saved
+    ref = dot_product_attention(q.float(), k.float(), v.float())
+    err = (out.float() - ref).abs().max().item()
+    return err, err / ref.abs().max().item()
+
+
+def device_ms_by_kernel(prof) -> dict:
+    """Device time (ms) by kernel name from a finished torch.profiler run."""
+    by_name = {}
+    for e in prof.key_averages():
+        if str(e.device_type).endswith("CUDA"):
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+    return by_name
+
+
+def main_kernel(fn) -> str:
+    """The name of the device kernel that takes most of one ``fn`` call."""
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    by_name = device_ms_by_kernel(prof)
+    return max(by_name, key=by_name.get)[:160] if by_name else "not measured"
+
+
+def phase_kernel_flash(ctx):
+    """K2 on views of a packed seeded qkv against the f32 plain twin on the
+    same inputs; times of the kernel, of the plain twin in the working
+    dtype, and of one SDPA call. Then the FLASH_EDGE rows, checked only."""
+    torch.backends.cuda.matmul.allow_tf32 = False
     rows = []
     for i, (s, heads, dtype, per_step) in enumerate(FLASH_SHAPES):
         n, d = FLASH_N, FLASH_D
-        gen = torch.Generator(device=dev).manual_seed(200 + i)
-        qkv = torch.randn((n, s, heads * 3 * d), generator=gen,
-                          device=dev).to(dtype)
-        q, k, v = qkv.view(n, s, heads, 3, d).unbind(dim=3)
+        q, k, v = flash_inputs(s, heads, d, dtype, seed=200 + i)
+        err, rel = flash_error(q, k, v)
         saved = flash_attention.launches
-        out = flash_attention(q, k, v)
-        torch.cuda.synchronize()
-        ref = dot_product_attention(q.float(), k.float(), v.float())
-        err = (out.float() - ref).abs().max().item()
-        rel = err / ref.abs().max().item()
         ms = cuda_ms(lambda: flash_attention(q, k, v), reps=20)
+        flash_attention.launches = saved    # comparisons do not count
         plain_ms = cuda_ms(lambda: dot_product_attention(q, k, v), reps=20)
         qh, kh, vh = (t.transpose(1, 2) for t in (q, k, v))
-        library_ms = cuda_ms(
-            lambda: F.scaled_dot_product_attention(qh, kh, vh), reps=20)
-        flash_attention.launches = saved    # comparisons do not count
+        sdpa = lambda: F.scaled_dot_product_attention(qh, kh, vh)  # noqa: E731
+        library_ms = cuda_ms(sdpa, reps=20)
         bound, by, nbytes, flops = flash_bound_ms(n * heads, s, d, dtype)
         tol_abs, tol_rel = FLASH_TOL[dtype]
         row = {"shape": f"qkv({n},{s},{heads}x3x{d})", "dtype": str(dtype),
                "calls_per_step": per_step, "max_abs_err": err,
                "max_rel_err": rel, "tol_abs": tol_abs, "tol_rel": tol_rel,
                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_kernel": main_kernel(sdpa),
                "bound_ms": bound, "bound_by": by, "bytes": nbytes,
                "flop": flops, "tflops": flops / ms / 1e9, "card": ctx["smi"]}
         emit({"phase": "kernel_flash", **row})
@@ -271,6 +362,19 @@ def phase_kernel_flash(ctx):
         if not (err <= tol_abs and rel <= tol_rel):
             raise AssertionError(f"flash kernel disagrees at {row['shape']} "
                                  f"{dtype}: abs {err} (tol {tol_abs}), "
+                                 f"rel {rel} (tol {tol_rel})")
+    tol_abs, tol_rel = FLASH_TOL[torch.bfloat16]
+    for i, (s, heads, d) in enumerate(FLASH_EDGE):
+        err, rel = flash_error(*flash_inputs(s, heads, d, torch.bfloat16,
+                                             seed=300 + i, ramp=True))
+        row = {"shape": f"qkv({FLASH_N},{s},{heads}x3x{d})",
+               "dtype": str(torch.bfloat16), "v": "ramp", "max_abs_err": err,
+               "max_rel_err": rel, "tol_abs": tol_abs, "tol_rel": tol_rel}
+        emit({"phase": "kernel_flash", **row})
+        rows.append(row)
+        if not (err <= tol_abs and rel <= tol_rel):
+            raise AssertionError(f"flash kernel disagrees at {row['shape']} "
+                                 f"(ramp V): abs {err} (tol {tol_abs}), "
                                  f"rel {rel} (tol {tol_rel})")
     ctx["flash_rows"] = rows
 
@@ -497,13 +601,7 @@ def phase_profile_step(ctx):
                 call()
                 torch.cuda.synchronize()
                 wall_ms = (time.time() - t0) * 1e3
-        by_name = {}
-        for e in prof.key_averages():
-            if str(e.device_type).endswith("CUDA"):
-                us = getattr(e, "self_device_time_total", None)
-                if us is None:
-                    us = e.self_cuda_time_total
-                by_name[e.key] = by_name.get(e.key, 0.0) + us / 1e3
+        by_name = device_ms_by_kernel(prof)
         busy = sum(by_name.values())
         by_class = {}
         for k, v in by_name.items():
@@ -522,9 +620,10 @@ def phase_profile_step(ctx):
 
 def kernel_record(name, source, replaces, rows, launches):
     """One entry of the ``kernels`` line: the numbers of the first shape
-    (the main path's costliest), every shape beside them."""
-    keys = ("shape", "ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
-            "max_abs_err")
+    (the main path's costliest), every shape beside them (checked-only
+    rows with null times); max_abs_err over all of them."""
+    keys = ("shape", "ms", "plain_ms", "library_ms", "library_kernel",
+            "bound_ms", "bound_by", "max_abs_err")
     return {"name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": launches.get("slice_full_gaussian"),
             "launches_by_path": launches,

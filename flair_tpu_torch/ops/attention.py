@@ -46,9 +46,9 @@ _SIGNATURES = {
 }
 
 
-def _check(q, k, v):
+def _check(q, k, v, scale):
     """Raise on anything the kernel does not take (CUDA tensors only: on the
-    CPU the twin takes any head dim)."""
+    CPU the twin takes any head dim and any scale)."""
     if q.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"flash_attention: dtype {q.dtype} unsupported")
     b, s, h, d = q.shape
@@ -63,6 +63,8 @@ def _check(q, k, v):
                          f"{vec} elements (16-byte rows)")
     if any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
+    if not scale > 0:
+        raise ValueError("flash_attention: the kernel takes a positive scale")
 
 
 def flash_attention(q, k, v, scale: float | None = None):
@@ -85,9 +87,9 @@ def flash_attention(q, k, v, scale: float | None = None):
         return dot_product_attention(q, k, v, scale)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for {q.device}")
-    _check(q, k, v)
     b, s, h, d = q.shape
     scale = (1.0 / math.sqrt(d)) if scale is None else scale
+    _check(q, k, v, scale)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lib = build.load(KERNEL, _SIGNATURES)
     sb, ss, sh, _ = q.stride()

@@ -88,19 +88,36 @@ def cuda_device():
     return torch.device("cuda")
 
 
+def ramp_v(qkv, heads, d):
+    """``qkv`` with every head's V set to a ramp that is not symmetric in
+    (key, d): 2·key/(S-1) - 1 + d/(2D) + h/10."""
+    n, s, _ = qkv.shape
+    out = qkv.reshape(n, s, heads, 3, d).copy()
+    key = np.arange(s).reshape(s, 1, 1) / max(s - 1, 1)
+    out[..., 2, :] = (2 * key - 1 + np.arange(d) / (2 * d)
+                      + np.arange(heads).reshape(1, heads, 1) / 10)
+    return out.reshape(n, s, heads * 3 * d)
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("dtype,s,heads,d", [
-    (torch.bfloat16, 1024, 4, 64), (torch.bfloat16, 100, 8, 64),
-    (torch.bfloat16, 64, 4, 32), (torch.float32, 256, 8, 64),
-    (torch.float32, 37, 2, 32)])
-def test_cuda_kernel_matches_plain(cuda_device, dtype, s, heads, d):
+@pytest.mark.parametrize("dtype,s,heads,d,ramp", [
+    (torch.bfloat16, 1024, 4, 64, False), (torch.bfloat16, 100, 8, 64, False),
+    (torch.bfloat16, 64, 4, 32, False), (torch.float32, 256, 8, 64, False),
+    (torch.float32, 37, 2, 32, False)]
+    + [(torch.bfloat16, s, 4, 64, True) for s in (1, 63, 65, 127, 129, 1000)]
+    + [(torch.bfloat16, s, 4, 32, True) for s in (50, 200, 1000)])
+def test_cuda_kernel_matches_plain(cuda_device, dtype, s, heads, d, ramp):
     """The kernel against its twin on the card, on views of a packed qkv,
     relative to the largest output: f32 to reassociation error (1e-5), bf16
-    to the rounding of P to bf16 before P·V and of the output (2e-2)."""
+    to the rounding of P to bf16 before P·V and of the output (2e-2). The
+    ramp cases cover each query tile (16 / 64 / 128 rows for S ≤ 64 / ≤ 256
+    / above) with a ragged last key tile, and hold the transposed read of V
+    to a V whose rows and columns differ."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    qkv = torch.from_numpy(packed_qkv(7, 2, s, heads, d, 2.0)).to(
-        cuda_device, dtype)
-    q, k, v = split(qkv, heads, d)
+    qkv = packed_qkv(7, 2, s, heads, d, 2.0)
+    if ramp:
+        qkv = ramp_v(qkv, heads, d)
+    q, k, v = split(torch.from_numpy(qkv).to(cuda_device, dtype), heads, d)
     before = flash_attention.launches
     out = flash_attention(q, k, v)
     torch.cuda.synchronize()
@@ -108,3 +125,16 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype, s, heads, d):
     ref = dot_product_attention(q.float(), k.float(), v.float())
     err = (out.float() - ref).abs().max().item() / ref.abs().max().item()
     assert err < (1e-5 if dtype == torch.float32 else 2e-2), err
+
+
+@pytest.mark.cuda
+def test_cuda_kernel_rejects_nonpositive_scale(cuda_device):
+    """The bf16 kernel takes the row max of unscaled scores, so the wrapper
+    raises for a scale that is not positive instead of launching it."""
+    qkv = torch.from_numpy(packed_qkv(4, 1, 16, 2, 32)).to(
+        cuda_device, torch.bfloat16)
+    q, k, v = split(qkv, 2, 32)
+    before = flash_attention.launches
+    with pytest.raises(ValueError):
+        flash_attention(q, k, v, scale=-0.1)
+    assert flash_attention.launches == before
