@@ -8,10 +8,13 @@ card.
 
 Phases, one JSON line each (a record per shape for the kernels):
   device       card name, power limit (nvidia-smi)
-  build        nvcc of every source in flair_tpu_torch/csrc/, one after the
-               other
+  build        nvcc of every source in flair_tpu_torch/csrc/, all started
+               together
   kernel_dcn   csrc/dcn_raw.cu vs ops/deform.py at both main-path shapes,
-               max residue magnitude 5 (x8 path) and 10 (gaussian path)
+               max residue magnitude 5 (x8 path) and 10 (gaussian path),
+               timed; then correctness-only rows (DCN_EDGE): ragged pixel
+               counts, B = 2, raw blocks as views and as separate tensors,
+               flows past every border, every Cout, Cin/G of 8 to 32
   kernel_flash csrc/flash_attn.cu vs ops/attention.dot_product_attention at
                the BlurUNet's three attention shapes (bf16) and one f32 row,
                timed beside SDPA (and the kernel SDPA ran, from the
@@ -35,6 +38,7 @@ Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import math
@@ -76,6 +80,17 @@ DCN_G = 16
 DCN_SHAPES = ((512, 128, 64), (256, 256, 128))   # (H=W, Cin, Cout), B=1
 DCN_TOL = 3e-2         # max abs error, bf16 kernel vs f32 plain, unit outputs
 DCN_TOL_REL = 1e-2     # the same over the largest |output|: bf16 rounding
+# correctness-only K1 rows, bf16: (B, H, W, Cin, Cout, G, raw as views of one
+# tensor, flow amplitude in px, M). Pixel counts and widths that no 128-pixel
+# tile divides, Cin/G = 8 / 16 / 24 (groups straddle a 32-channel chunk) / 32,
+# and flows of 12-40 px that carry samples past every border.
+DCN_EDGE = ((1, 40, 72, 128, 64, 16, True, 3.0, 10.0),
+            (2, 100, 100, 64, 32, 8, True, 12.0, 5.0),
+            (1, 33, 65, 256, 128, 16, False, 12.0, 10.0),
+            (2, 33, 65, 128, 64, 16, False, 12.0, 5.0),
+            (1, 40, 72, 384, 128, 16, True, 3.0, 5.0),
+            (1, 100, 100, 512, 64, 16, False, 3.0, 10.0),
+            (2, 40, 72, 256, 128, 16, True, 40.0, 10.0))
 # K2 at the BlurUNet's attention sites, one 10-frame window, D = 64:
 # (S, heads, dtype, calls per denoiser step)
 FLASH_N, FLASH_D = 10, 64
@@ -145,10 +160,10 @@ def phase_device(ctx):
 
 
 def ptxas_report(log: str) -> dict:
-    """Per kernel of one nvcc ``-Xptxas -v`` log: registers a thread, spill
-    bytes (stores + loads) and static shared memory, keyed by the kernel's
-    demangled name without its parameter list (the mangled name where
-    cu++filt is missing)."""
+    """Per kernel of one nvcc ``-Xptxas -v`` log: registers a thread, stack
+    frame and spill bytes (stores + loads) and static shared memory, keyed
+    by the kernel's demangled name without its parameter list (the mangled
+    name where cu++filt is missing)."""
     rep, fn = {}, None
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", ln)
@@ -158,9 +173,11 @@ def ptxas_report(log: str) -> dict:
             continue
         if fn is None:
             continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", ln)
         if m:
-            rep[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+            rep[fn]["stack_frame"] = int(m.group(1))
+            rep[fn]["spill_bytes"] = int(m.group(2)) + int(m.group(3))
         m = re.search(r"Used (\d+) registers", ln)
         if m:
             rep[fn]["registers"] = int(m.group(1))
@@ -186,36 +203,44 @@ def ptxas_report(log: str) -> dict:
 
 
 def phase_build(ctx):
-    """One blocking nvcc per source, one after the other: the whole build
-    takes about 10 s, too little for parallel builds to matter."""
+    """One nvcc per source, all started together."""
     names = sorted(f[:-3] for f in os.listdir(build.CSRC) if f.endswith(".cu"))
     t0 = time.time()
-    logs = {n: build.compile_source(n) for n in names}
+    with concurrent.futures.ThreadPoolExecutor(len(names)) as pool:
+        logs = dict(zip(names, pool.map(build.compile_source, names)))
     secs = time.time() - t0
     emit({"phase": "build", "sources": names, "seconds": round(secs, 3),
           "ptxas": {n: ptxas_report(log) for n, log in logs.items()}})
 
 
-def dcn_inputs(h, cin, cout, seed, device):
-    """Main-path-shaped raw DCN inputs: smooth flows of a few pixels plus
-    tanh residues, bf16 x and raw blocks, seeded."""
+def dcn_inputs(h, cin, cout, seed, device, b=1, w=None, g=DCN_G, amp=3.0,
+               views=True):
+    """Raw DCN inputs, main-path-shaped by default: smooth flows of ``amp``
+    pixels plus tanh residues, bf16 x and raw blocks, seeded. The raw blocks
+    are views of one NHWC tensor, as vsrpp gives them, or with ``views``
+    False three contiguous tensors."""
     gen = torch.Generator(device=device).manual_seed(seed)
+    w = w or h
 
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=gen, device=device) * scale
 
-    a, gk = 2, DCN_G * 9
+    a, gk = 2, g * 9
     yy = torch.arange(h, device=device).view(1, h, 1, 1) / h
-    xx = torch.arange(h, device=device).view(1, 1, h, 1) / h
+    xx = torch.arange(w, device=device).view(1, 1, w, 1) / w
     ph = torch.rand((1, 1, 1, a), generator=gen, device=device) * 6.28
-    flow_y = (3.0 * torch.sin(2 * math.pi * (yy + xx) + ph)).expand(
-        1, h, h, a).contiguous()
-    flow_x = (3.0 * torch.cos(2 * math.pi * (yy - 2 * xx) + ph)).expand(
-        1, h, h, a).contiguous()
+    flow_y = (amp * torch.sin(2 * math.pi * (yy + xx) + ph)).expand(
+        b, h, w, a).contiguous()
+    flow_x = (amp * torch.cos(2 * math.pi * (yy - 2 * xx) + ph)).expand(
+        b, h, w, a).contiguous()
     bf = torch.bfloat16
-    x = randn(1, h, h, cin).to(bf)
-    raw = randn(1, h, h, 3 * gk).to(bf)        # one NHWC tensor, as vsrpp
-    res_y, res_x, mlog = raw[..., :gk], raw[..., gk:2 * gk], raw[..., 2 * gk:]
+    x = randn(b, h, w, cin).to(bf)
+    if views:
+        raw = randn(b, h, w, 3 * gk).to(bf)
+        res_y, res_x, mlog = (raw[..., :gk], raw[..., gk:2 * gk],
+                              raw[..., 2 * gk:])
+    else:
+        res_y, res_x, mlog = (randn(b, h, w, gk).to(bf) for _ in range(3))
     weight = randn(cout, cin, 3, 3, scale=1.0 / math.sqrt(9 * cin))
     bias = randn(cout, scale=0.1)
     return x, res_y, res_x, mlog, flow_y, flow_x, weight, bias
@@ -233,21 +258,32 @@ def dcn_bound_ms(h, cin, cout, x_bytes):
                                  "operations"), nbytes, flops
 
 
+def dcn_error(args, mrm):
+    """One kernel launch against the f32 plain twin on the same inputs:
+    (max abs, max abs over the largest |output|). The launch is not
+    counted."""
+    x, ry, rx, ml, fy, fx, w, b = args
+    saved = deform_conv2d_raw.launches
+    out = deform_conv2d_raw(*args, mrm)
+    torch.cuda.synchronize()
+    deform_conv2d_raw.launches = saved
+    with torch.no_grad():
+        ref = deform_conv2d_raw_plain(x.float(), ry.float(), rx.float(),
+                                      ml.float(), fy, fx, w, b, mrm)
+    err = (out.float() - ref).abs().max().item()
+    return err, err / ref.abs().max().item()
+
+
 def phase_kernel_dcn(ctx):
+    """K1 at the main-path shapes, timed beside its plain twin, then the
+    DCN_EDGE rows, checked only."""
     dev = torch.device("cuda")
     rows = []
     for mrm in DCN_MRMS:
         for i, (h, cin, cout) in enumerate(DCN_SHAPES):
             args = dcn_inputs(h, cin, cout, seed=100 + i, device=dev)
-            x, ry, rx, ml, fy, fx, w, b = args
+            err, rel = dcn_error(args, mrm)
             saved = deform_conv2d_raw.launches
-            out = deform_conv2d_raw(*args, mrm)
-            torch.cuda.synchronize()
-            with torch.no_grad():
-                ref = deform_conv2d_raw_plain(x.float(), ry.float(), rx.float(),
-                                              ml.float(), fy, fx, w, b, mrm)
-            err = (out.float() - ref).abs().max().item()
-            rel = err / ref.abs().max().item()
             ms = cuda_ms(lambda: deform_conv2d_raw(*args, mrm), reps=20)
             plain_ms = cuda_ms(lambda: deform_conv2d_raw_plain(*args, mrm),
                                reps=3, warmup=1, batches=1)
@@ -265,6 +301,20 @@ def phase_kernel_dcn(ctx):
                 raise AssertionError(
                     f"dcn kernel disagrees at {row['shape']} M={mrm}: "
                     f"abs {err} (tol {DCN_TOL}), rel {rel} (tol {DCN_TOL_REL})")
+    for i, (b, h, w, cin, cout, g, views, amp, mrm) in enumerate(DCN_EDGE):
+        args = dcn_inputs(h, cin, cout, seed=400 + i, device=dev, b=b, w=w,
+                          g=g, amp=amp, views=views)
+        err, rel = dcn_error(args, mrm)
+        row = {"shape": f"x({b},{h},{w},{cin})->{cout}", "G": g,
+               "raw": "views" if views else "separate", "flow_px": amp,
+               "mrm": mrm, "max_abs_err": err, "max_rel_err": rel,
+               "tol_abs": DCN_TOL, "tol_rel": DCN_TOL_REL}
+        emit({"phase": "kernel_dcn", **row})
+        rows.append(row)
+        if not (err <= DCN_TOL and rel <= DCN_TOL_REL):
+            raise AssertionError(
+                f"dcn kernel disagrees at {row['shape']} G={g} M={mrm}: "
+                f"abs {err} (tol {DCN_TOL}), rel {rel} (tol {DCN_TOL_REL})")
     ctx["dcn_rows"] = rows
 
 

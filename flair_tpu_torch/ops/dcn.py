@@ -102,8 +102,9 @@ def deform_conv2d_raw(x, res_y, res_x, mask_logits, flow_y, flow_x, weight,
         raise ValueError(f"deform_conv2d_raw: no kernel for {x.device}")
     b, h, w, cin = x.shape
     cout = weight.shape[0]
-    wk = weight.to(x.dtype).permute(2, 3, 1, 0).reshape(9, cin, cout)
-    wk = wk.contiguous()
+    # (Cout, Cin, 3, 3) -> (9, Cin, Cout) in x.dtype: one cast-and-copy launch
+    wk = torch.empty((9, cin, cout), dtype=x.dtype, device=x.device)
+    wk.copy_(weight.permute(2, 3, 1, 0).reshape(9, cin, cout))
     b32 = (torch.zeros(cout, device=x.device) if bias is None
            else bias.float().contiguous())
     out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)

@@ -137,6 +137,54 @@ def test_cuda_kernel_matches_plain(cuda_device, dtype):
     assert err < (1e-5 if dtype == torch.float32 else 1e-2), err
 
 
+# (B, H, W, Cin, Cout, G, raw as views of one tensor, flow px, M): pixel
+# counts and widths that no 128-pixel tile divides, B = 2, Cin/G = 8, 16,
+# 24 (groups straddle a 32-channel chunk) and 32, flows past every border
+EDGE_CASES = [(1, 40, 72, 128, 64, 16, True, 3.0, 10.0),
+              (2, 100, 100, 64, 32, 8, True, 12.0, 5.0),
+              (1, 33, 65, 256, 128, 16, False, 12.0, 10.0),
+              (2, 33, 65, 128, 64, 16, False, 12.0, 5.0),
+              (1, 40, 72, 384, 128, 16, True, 3.0, 5.0),
+              (1, 100, 100, 512, 64, 16, False, 3.0, 10.0),
+              (2, 40, 72, 256, 128, 16, True, 40.0, 10.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", EDGE_CASES)
+def test_cuda_kernel_matches_plain_on_ragged_tiles(cuda_device, case, dtype):
+    """Both instances against the plain twin where the tiling is ragged:
+    bf16 within 3e-2 abs and 1e-2 of the largest output, f32 within 1e-5
+    of it. Raw blocks come as views of one (B, H, W, 3·G·9) tensor or as
+    three contiguous tensors."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    b, h, w, cin, cout, g, views, amp, mrm = case
+    arrs = make_raw_inputs(17, b, h, w, cin, cout, g=g, amp=amp)
+    x, ry, rx, ml, fy, fx, wgt, bias = (
+        t.to(cuda_device) for t in to_torch_args(arrs))
+    # weights of std 1/sqrt(9·Cin), as chip_smoke.py's: outputs of unit
+    # scale, the scale the 3e-2 absolute tolerance is stated for
+    wgt = wgt * (10.0 / (9 * cin) ** 0.5)
+    if views:
+        raw = torch.cat([ry, rx, ml], dim=-1)
+        ry, rx, ml = raw.split(g * 9, dim=-1)
+        assert ry.stride(2) == 3 * g * 9
+    x, ry, rx, ml = (t.to(dtype) for t in (x, ry, rx, ml))
+    before = deform_conv2d_raw.launches
+    out = deform_conv2d_raw(x, ry, rx, ml, fy, fx, wgt, bias, mrm)
+    torch.cuda.synchronize()
+    assert deform_conv2d_raw.launches == before + 1
+    ref = deform_conv2d_raw_plain(x.float(), ry.float(), rx.float(),
+                                  ml.float(), fy, fx, wgt, bias, mrm)
+    err = (out.float() - ref).abs().max().item()
+    rel = err / ref.abs().max().item()
+    if dtype == torch.float32:
+        assert rel < 1e-5, rel
+    else:
+        assert err < 3e-2 and rel < 1e-2, (err, rel)
+
+
 @pytest.mark.parametrize("fault", ["nchw_raw_view", "cout", "flow_dtype"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(fault):
     """The wrapper checks its inputs on every device, so a CPU run fails
