@@ -1,7 +1,7 @@
 """GPU smoke run of the flair_tpu_torch port: builds the CUDA kernels, holds
 each against its plain PyTorch version, and drives the port's main paths
-(x8_bicubic and gaussian guided DDIM, face prior off) at full width on one
-card.
+(x8_bicubic guided DDIM with the face prior on and off, gaussian) at full
+width on one card.
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases build,kernel_dcn,kernel_flash
@@ -23,11 +23,17 @@ Phases, one JSON line each (a record per shape for the kernels):
   slice_small  the x8 test configuration on cuda (kernel) vs cpu (plain)
   slice_small_blur  the gaussian and jpeg test configurations (goldens'
                widths, 32-channel heads) on cuda (both kernels) vs cpu
+  slice_small_face  slice_small with the face prior on: small seeded
+               CodeFormer / ParseNet at 64², fixed matrices, cuda vs cpu
   slice_full   full-width BicubicUNet, 13-frame 64² clip → 512², ddim25
   slice_full_gaussian  full-width BlurUNet, 10-frame 128² clip → 512²,
                gaussian task, ddim25
+  slice_full_face  slice_full with the face prior on: CodeFormer and
+               ParseNet at the JAX defaults, bf16, bench.py's fixed matrix;
+               face calls timed with CUDA events around each
   profile_step (only when asked for) one denoiser call of each full-width
-               model under torch.profiler: device time by kernel, idle share
+               model, and one face call, under torch.profiler: device time
+               by kernel and by class, idle share
 
 Then, on the lines before the last: one {"kernels": [...]} record and the
 card as nvidia-smi names it. The last line is the {"ok": ...} record.
@@ -54,22 +60,28 @@ import torch
 import torch.nn.functional as F
 
 from flair_tpu_torch.diffusion import GuidanceConfig, make_task_diffusion
+from flair_tpu_torch.face.helper import make_face_fn_p
 from flair_tpu_torch.models.adm import BlurUNet
+from flair_tpu_torch.models.codeformer import CodeFormer
+from flair_tpu_torch.models.parsenet import ParseNet
 from flair_tpu_torch.models.registry import get_model
 from flair_tpu_torch.models.sr3 import BicubicUNet
 from flair_tpu_torch.ops.attention import dot_product_attention, flash_attention
 from flair_tpu_torch.ops.dcn import deform_conv2d_raw
 from flair_tpu_torch.ops.deform import deform_conv2d_raw_plain
+from flair_tpu_torch.pipeline import video
 from flair_tpu_torch.pipeline.video import (
-    TASK_CONFIGS, init_from_degraded, restore_video, rnn_input_for,
+    TASK_CONFIGS, init_from_degraded, restore_video, rnn_input_for, scale_tau,
     window_slices)
-from flair_tpu_torch.pipeline.wrappers import wrap_bicubic_model, wrap_blur_model
+from flair_tpu_torch.pipeline.wrappers import (
+    wrap_bicubic_model, wrap_blur_model, wrap_codeformer, wrap_parsenet)
 from flair_tpu_torch.utils import build
 from flair_tpu_torch.utils.convert import (
     from_flax_bicubic_unet, from_flax_blur_unet)
 
 ALL_PHASES = ("device", "build", "kernel_dcn", "kernel_flash", "slice_small",
-              "slice_small_blur", "slice_full", "slice_full_gaussian")
+              "slice_small_blur", "slice_small_face", "slice_full",
+              "slice_full_gaussian", "slice_full_face")
 EXTRA_PHASES = ("profile_step",)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MEM_BW = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
@@ -108,8 +120,18 @@ FLASH_EDGE = (tuple((s, 4, 64) for s in (1, 63, 65, 127, 129, 1000))
 SMALL_PSNR_DB = 50.0   # cuda kernel vs cpu plain, f32 end to end
 FULL_STEPS = "ddim25"
 SLEEP_CYCLES_PER_CALL = 400_000   # ~0.2 ms at the H100's SM clock
-DCN_PER_STEP = {"slice_full": 108, "slice_full_gaussian": 180}
-FLASH_PER_STEP = {"slice_full": 0, "slice_full_gaussian": 16}
+DCN_PER_STEP = {"slice_full": 108, "slice_full_gaussian": 180,
+                "slice_full_face": 108}
+FLASH_PER_STEP = {"slice_full": 0, "slice_full_gaussian": 16,
+                  "slice_full_face": 0}
+FACE_MATRIX = np.array([[1.1, 0.08, 12.0], [-0.08, 1.1, -9.0]],
+                       np.float32)   # bench.py:266-268
+# the small face models: 64² faces (a 16² latent), as tests/test_torch_pipeline.py
+SMALL_CF = dict(dim_embd=64, n_head=4, n_layers=1, codebook_size=32,
+                latent_size=256, connect_list=("32", "64"), nf=32,
+                ch_mult=(1, 2, 2))
+SMALL_PN = dict(in_size=64, out_size=64, min_feat_size=16, base_ch=16,
+                res_depth=1, ch_range=(16, 64))
 
 
 def emit(rec: dict) -> None:
@@ -442,10 +464,76 @@ def golden(name):
     return gold, meta, dict(np.load(os.path.join(gold, "params.npz")))
 
 
-def small_restore(device):
+class FixedFaceHelper:
+    """The face helper's interface without a detector: bench.py's fixed
+    matrix for every frame."""
+
+    def get_affine_matrices(self, frames01, **kw):
+        return [FACE_MATRIX] * len(frames01)
+
+
+class Counted:
+    """A callable that counts its calls."""
+
+    def __init__(self, fn):
+        self.fn, self.calls = fn, 0
+
+    def __call__(self, *args):
+        self.calls += 1
+        return self.fn(*args)
+
+
+class FaceProbe:
+    """Within ``with``: the face function that ``restore_video`` builds
+    (``video.make_face_fn_p``) counts its calls and brackets each with two
+    CUDA events, so the face prior's device time is read in the run."""
+
+    def __enter__(self):
+        self.calls, self.events = 0, []
+        self._make = make = video.make_face_fn_p
+
+        def probed_make(*args, **kw):
+            fn = make(*args, **kw)
+
+            def face_fn(*fargs):
+                self.calls += 1
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                ev[0].record()
+                out = fn(*fargs)
+                ev[1].record()
+                self.events.append(ev)
+                return out
+
+            return face_fn
+
+        video.make_face_fn_p = probed_make
+        return self
+
+    def __exit__(self, *exc):
+        video.make_face_fn_p = self._make
+
+    def ms(self) -> list:
+        """Each call's ms (after a synchronize)."""
+        return [a.elapsed_time(b) for a, b in self.events]
+
+
+def face_models(device, cf_kw, pn_kw, scale, dtype=torch.float32):
+    """Seeded random CodeFormer and ParseNet on ``device``, wrapped as
+    ``restore_video``'s counted appliers."""
+    cf, pn = CodeFormer(**cf_kw, dtype=dtype), ParseNet(**pn_kw, dtype=dtype)
+    cf.random_init(seed=1, scale=scale)
+    pn.random_init(seed=2, scale=scale)
+    return (Counted(wrap_codeformer(cf.to(device).eval())),
+            Counted(wrap_parsenet(pn.to(device).eval())))
+
+
+def small_restore(device, face=False):
     """The CPU tests' configuration: goldens/x8_s64 weights and clip (5
     frames, 8² → 64²), windows of 3 overlapping by 1, 4 DDIM steps, noise
-    from one numpy seed. Returns the restored (5, 64, 64, 3) clip."""
+    from one numpy seed. With ``face``, the face prior is on in every step:
+    the SMALL_CF / SMALL_PN models at 0.1 (at 0.02 ParseNet gives one class
+    everywhere), FACE_MATRIX, VSR++ background weights 0.93. Returns the
+    restored (5, 64, 64, 3) clip."""
     gold, _, flat = golden("x8_s64")
     cfg = dataclasses.replace(TASK_CONFIGS["x8_bicubic"], output_size=64,
                               input_size=8, steps="ddim4")
@@ -456,12 +544,18 @@ def small_restore(device):
     model.load_state_dict(from_flax_bicubic_unet(flat))
     model.to(device).eval()
     rng = np.random.default_rng(0)
+    kw = {}
+    if face:
+        cf, pn = face_models(device, SMALL_CF, SMALL_PN, scale=0.1)
+        kw = dict(face_helper=FixedFaceHelper(), codeformer_apply=cf,
+                  parsenet_apply=pn)
     return restore_video(
         np.load(os.path.join(gold, "degraded01.npy")), cfg,
         wrap_bicubic_model(d, model), diffusion=d,
-        guidance=GuidanceConfig(use_aux=False, w=cfg.w, rho=cfg.rho, tau=0),
+        guidance=GuidanceConfig(use_aux=face, w=cfg.w, rho=cfg.rho, tau=0),
         win=3, overlap=1, sampler="ddim", device=device,
-        noise_fn=lambda shape: rng.standard_normal(shape).astype(np.float32))
+        noise_fn=lambda shape: rng.standard_normal(shape).astype(np.float32),
+        **kw)
 
 
 def small_blur_restore(task, device):
@@ -493,7 +587,8 @@ def small_blur_restore(task, device):
 
 def cuda_vs_cpu(restore, name):
     """f32 with TF32 off: ``restore("cuda")`` through the kernels against
-    ``restore("cpu")`` through their twins. Returns the phase record."""
+    ``restore("cpu")`` through their twins. Returns the phase record and
+    the cuda result."""
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     saved = deform_conv2d_raw.launches, flash_attention.launches
@@ -508,14 +603,14 @@ def cuda_vs_cpu(restore, name):
     return {"phase": name, "psnr_db_cuda_vs_cpu": psnr(out_gpu, out_cpu),
             "min_psnr_db": SMALL_PSNR_DB, "dcn_launches": launches[0],
             "flash_launches": launches[1], "seconds_cuda": round(t_gpu, 3),
-            "shape": list(out_gpu.shape)}
+            "shape": list(out_gpu.shape)}, out_gpu
 
 
 def phase_slice_small(ctx):
     """The x8 CPU test configuration (goldens' widths, 64², 5 frames, 4
     DDIM steps), f32 everywhere, on cuda through the kernel and on cpu
     through the plain version."""
-    rec = cuda_vs_cpu(small_restore, "slice_small")
+    rec, _ = cuda_vs_cpu(small_restore, "slice_small")
     emit(rec)
     if not (rec["psnr_db_cuda_vs_cpu"] >= SMALL_PSNR_DB
             and rec["dcn_launches"] > 0):
@@ -526,8 +621,8 @@ def phase_slice_small_blur(ctx):
     """The gaussian and jpeg CPU test configurations on cuda (both
     kernels) against cpu (both twins)."""
     for task in ("gaussian", "jpeg"):
-        rec = cuda_vs_cpu(lambda dev: small_blur_restore(task, dev),
-                          "slice_small_blur")
+        rec, _ = cuda_vs_cpu(lambda dev: small_blur_restore(task, dev),
+                             "slice_small_blur")
         rec["task"] = task
         emit(rec)
         if not (rec["psnr_db_cuda_vs_cpu"] >= SMALL_PSNR_DB
@@ -535,30 +630,68 @@ def phase_slice_small_blur(ctx):
             raise AssertionError(f"slice_small_blur failed its checks: {rec}")
 
 
-def run_full(ctx, name, task, model, make_apply, clip):
+def phase_slice_small_face(ctx):
+    """slice_small with the face prior on: crop, CodeFormer, ParseNet
+    mask, blur and paste in every step, on cuda (K1, cuDNN, grid_sample)
+    against cpu; the face-off cuda result beside it shows the prior
+    changed the output."""
+    rec, out_face = cuda_vs_cpu(lambda dev: small_restore(dev, face=True),
+                                "slice_small_face")
+    torch.backends.cudnn.allow_tf32 = False
+    saved = deform_conv2d_raw.launches
+    out_plain = small_restore("cuda")
+    deform_conv2d_raw.launches = saved
+    torch.backends.cudnn.allow_tf32 = True
+    rec["psnr_db_face_vs_face_off"] = psnr(out_face, out_plain)
+    emit(rec)
+    if not (rec["psnr_db_cuda_vs_cpu"] >= SMALL_PSNR_DB
+            and rec["dcn_launches"] > 0
+            and rec["psnr_db_face_vs_face_off"] < SMALL_PSNR_DB):
+        raise AssertionError(f"slice_small_face failed its checks: {rec}")
+
+
+def run_full(ctx, name, task, model, make_apply, clip, face=None):
     """One main path at full width: every kernel count set to 0 just
     before ``restore_video``, read just after, and held to the expected
-    launches per denoiser step × steps × windows."""
+    launches per denoiser step × steps × windows. ``face``: (codeformer,
+    parsenet) counted appliers, for the face prior with FixedFaceHelper;
+    its calls are counted and timed in the run."""
     dev = torch.device("cuda")
-    cfg = dataclasses.replace(TASK_CONFIGS[task], steps=FULL_STEPS)
-    d = make_task_diffusion(cfg.task, cfg.steps, device=dev)
+    base = TASK_CONFIGS[task]
+    d = make_task_diffusion(base.task, FULL_STEPS, device=dev)
+    steps = d.num_timesteps
+    # the demo's face window (tau = 5 of 100 steps), kept as a fraction of
+    # the respaced schedule, as bench.py does
+    cfg = dataclasses.replace(base, steps=FULL_STEPS,
+                              tau=scale_tau(base.tau, steps))
     model_apply = make_apply(d)
     n_windows = len(window_slices(clip.shape[0]))
-    steps = d.num_timesteps
+    kw, expect_face = {}, {}
+    if face is not None:
+        kw = dict(face_helper=FixedFaceHelper(), codeformer_apply=face[0],
+                  parsenet_apply=face[1])
+        face_steps = steps - cfg.tau     # tau <= t <= steps - 1
+        expect_face = {"face_fn": face_steps * n_windows,
+                       "codeformer": face_steps * n_windows,
+                       "parsenet": (face_steps + 1) * n_windows}
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     deform_conv2d_raw.launches = flash_attention.launches = 0
+    for f in face or ():
+        f.calls = 0
     t0 = time.time()
-    out = restore_video(clip, cfg, model_apply, diffusion=d,
-                        sampler="ddim", device=dev,
-                        generator=torch.Generator(dev).manual_seed(0))
-    torch.cuda.synchronize()
+    with FaceProbe() as probe:
+        out = restore_video(clip, cfg, model_apply, diffusion=d,
+                            sampler="ddim", device=dev,
+                            generator=torch.Generator(dev).manual_seed(0),
+                            **kw)
+        torch.cuda.synchronize()
     secs = time.time() - t0
     launches = {"dcn_raw": deform_conv2d_raw.launches,
                 "flash_attn": flash_attention.launches}
     expect = {"dcn_raw": DCN_PER_STEP[name] * steps * n_windows,
               "flash_attn": FLASH_PER_STEP[name] * steps * n_windows}
-    out_size = TASK_CONFIGS[task].output_size
+    out_size = base.output_size
     rec = {"phase": name, "task": task, "steps": FULL_STEPS,
            "windows": n_windows, "shape": list(out.shape),
            "finite": bool(np.isfinite(out).all()),
@@ -567,15 +700,27 @@ def run_full(ctx, name, task, model, make_apply, clip):
            "seconds_total": round(secs, 3),
            "seconds_per_window": round(secs / n_windows, 3),
            "ms_per_step": secs / (steps * n_windows) * 1e3,
+           "frames_per_s": clip.shape[0] / secs,
            "max_memory_allocated_gib":
                torch.cuda.max_memory_allocated() / 2 ** 30,
            "card": ctx["smi"]}
+    calls = {}
+    if face is not None:
+        calls = {"face_fn": probe.calls, "codeformer": face[0].calls,
+                 "parsenet": face[1].calls}
+        face_ms = probe.ms()
+        rec.update({"face_calls": calls, "face_calls_expected": expect_face,
+                    "face_ms_per_call_median": float(np.median(face_ms)),
+                    "face_ms_per_call_min": min(face_ms),
+                    "face_ms_per_call_max": max(face_ms),
+                    "face_share_of_run": sum(face_ms) / 1e3 / secs})
+        ctx["face"] = (face, clip)
     emit(rec)
     ctx.setdefault("launches", {})[name] = launches
     ctx.setdefault("full", {})[name] = (task, model, model_apply, clip)
     if not (rec["shape"] == [clip.shape[0], out_size, out_size, 3]
             and rec["finite"] and rec["min"] >= 0.0 and rec["max"] <= 1.0
-            and launches == expect):
+            and launches == expect and calls == expect_face):
         raise AssertionError(f"{name} failed its checks: {rec}")
 
 
@@ -605,12 +750,30 @@ def phase_slice_full_gaussian(ctx):
              lambda d: wrap_blur_model(d, model), clip)
 
 
+def phase_slice_full_face(ctx):
+    """slice_full with the face prior on: the same BicubicUNet and clip,
+    CodeFormer and ParseNet at the JAX defaults (512² faces), seeded random
+    weights at 0.02, bf16; FixedFaceHelper gives every frame bench.py's
+    matrix. The face runs in steps tau..24 of each window, tau =
+    scale_tau(5, 25) = 1: 48 face and CodeFormer calls, and 50 ParseNet
+    calls with the two that build each window's VSR++ weights."""
+    model = get_model("bicubic_unet", dtype=torch.bfloat16)
+    model.random_init(seed=0, scale=0.02)
+    model.to("cuda").eval()
+    clip = np.random.default_rng(0).uniform(
+        0, 1, (13, 64, 64, 3)).astype(np.float32)
+    face = face_models("cuda", {}, {}, scale=0.02, dtype=torch.bfloat16)
+    run_full(ctx, "slice_full_face", "x8_bicubic", model,
+             lambda d: wrap_bicubic_model(d, model), clip, face=face)
+
+
 KERNEL_CLASSES = (   # first match wins, on the lower-cased kernel name
     ("dcn_raw (K1)", ("dcn_raw",)),
     ("flash_attn (K2)", ("flash_fwd",)),
+    ("grid_sample", ("sampler",)),
+    ("pad / layout", ("pad", "nchwtonhwc", "nhwctonchw")),
     ("convolution", ("fprop", "conv", "dgrad")),
     ("matmul", ("gemm", "gemv", "cutlass")),
-    ("grid_sample", ("sampler",)),
     ("softmax", ("softmax",)),
     ("reduction / norm", ("reduce", "norm", "welford")),
     ("cat / copy", ("cat", "copy")),
@@ -626,11 +789,41 @@ def kernel_class(name: str) -> str:
     return "other"
 
 
+def profile_call(ctx, path, call):
+    """``call`` once to warm up, then once under torch.profiler: device
+    time by kernel and by class of kernel, each hand-written kernel's
+    share, and the idle share of the call's wall time."""
+    with torch.no_grad():
+        call()
+        torch.cuda.synchronize()
+        act = [torch.profiler.ProfilerActivity.CPU,
+               torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=act) as prof:
+            t0 = time.time()
+            call()
+            torch.cuda.synchronize()
+            wall_ms = (time.time() - t0) * 1e3
+    by_name = device_ms_by_kernel(prof)
+    busy = sum(by_name.values())
+    by_class = {}
+    for k, v in by_name.items():
+        by_class[kernel_class(k)] = by_class.get(kernel_class(k), 0.0) + v
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    emit({"phase": "profile_step", "path": path, "wall_ms": wall_ms,
+          "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
+          "dcn_ms": by_class.get("dcn_raw (K1)", 0.0),
+          "flash_ms": by_class.get("flash_attn (K2)", 0.0),
+          "class_ms": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
+          "top_kernels_ms": [[k[:120], v] for k, v in top],
+          "card": ctx["smi"]})
+    if busy <= 0:
+        raise AssertionError("profile_step: the profiler saw no device time")
+
+
 def phase_profile_step(ctx):
-    """One denoiser call of each full-width model at a window's shape under
-    torch.profiler: device time by kernel and by class of kernel, each
-    hand-written kernel's share, and the idle share of the call's wall
-    time."""
+    """One denoiser call of each full-width model at a window's shape, and
+    one face call of slice_full_face (10 faces at 512²), under
+    torch.profiler (``profile_call``)."""
     dev = torch.device("cuda")
     for name, (task, model, model_apply, clip) in ctx["full"].items():
         cfg = TASK_CONFIGS[task]
@@ -641,41 +834,25 @@ def phase_profile_step(ctx):
                         device=dev)
         with torch.no_grad():
             flows = model_apply.flows_fn(rnn)
-            call = lambda: model_apply(x, 0, init, rnn, None, flows)  # noqa: E731
-            call()
-            torch.cuda.synchronize()
-            act = [torch.profiler.ProfilerActivity.CPU,
-                   torch.profiler.ProfilerActivity.CUDA]
-            with torch.profiler.profile(activities=act) as prof:
-                t0 = time.time()
-                call()
-                torch.cuda.synchronize()
-                wall_ms = (time.time() - t0) * 1e3
-        by_name = device_ms_by_kernel(prof)
-        busy = sum(by_name.values())
-        by_class = {}
-        for k, v in by_name.items():
-            by_class[kernel_class(k)] = by_class.get(kernel_class(k), 0.0) + v
-        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-        emit({"phase": "profile_step", "path": name, "wall_ms": wall_ms,
-              "device_ms": busy, "idle_share": 1.0 - busy / wall_ms,
-              "dcn_ms": by_class.get("dcn_raw (K1)", 0.0),
-              "flash_ms": by_class.get("flash_attn (K2)", 0.0),
-              "class_ms": dict(sorted(by_class.items(), key=lambda kv: -kv[1])),
-              "top_kernels_ms": [[k[:120], v] for k, v in top],
-              "card": ctx["smi"]})
-        if busy <= 0:
-            raise AssertionError("profile_step: the profiler saw no device time")
+        profile_call(ctx, name,
+                     lambda: model_apply(x, 0, init, rnn, None, flows))
+        if name == "slice_full_face":
+            (cf, pn), _ = ctx["face"]
+            face_fn = make_face_fn_p(cf, pn, face_size=cfg.output_size)
+            mats = torch.as_tensor(np.tile(FACE_MATRIX, (10, 1, 1)),
+                                   device=dev)
+            profile_call(ctx, "face_fn", lambda: face_fn(init, x, mats))
 
 
-def kernel_record(name, source, replaces, rows, launches):
+def kernel_record(name, source, replaces, rows, launches, main_path):
     """One entry of the ``kernels`` line: the numbers of the first shape
     (the main path's costliest), every shape beside them (checked-only
-    rows with null times); max_abs_err over all of them."""
+    rows with null times); max_abs_err over all of them; ``launches`` from
+    ``main_path``'s run, every path's in ``launches_by_path``."""
     keys = ("shape", "ms", "plain_ms", "library_ms", "library_kernel",
             "bound_ms", "bound_by", "max_abs_err")
     return {"name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches.get("slice_full_gaussian"),
+            "replaces": replaces, "launches": launches.get(main_path),
             "launches_by_path": launches,
             "max_abs_err": max(r["max_abs_err"] for r in rows),
             "ms": rows[0]["ms"], "plain_ms": rows[0]["plain_ms"],
@@ -707,12 +884,12 @@ def main() -> int:
         kernels.append(kernel_record(
             "dcn_raw", "flair_tpu_torch/csrc/dcn_raw.cu",
             "flair_tpu/ops/dcn_pallas.py:50", ctx["dcn_rows"],
-            launches["dcn_raw"]))
+            launches["dcn_raw"], "slice_full_face"))
     if "kernel_flash" in phases:
         kernels.append(kernel_record(
             "flash_attn", "flair_tpu_torch/csrc/flash_attn.cu",
             "flair_tpu/ops/attention.py:53", ctx["flash_rows"],
-            launches["flash_attn"]))
+            launches["flash_attn"], "slice_full_gaussian"))
     if kernels:
         emit({"kernels": kernels})
     print(ctx["smi"], flush=True)

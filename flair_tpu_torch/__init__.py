@@ -4,13 +4,15 @@ Same sub-package layout and module names as ``flair_tpu`` so every module
 has an obvious counterpart:
 
 - ``flair_tpu_torch.ops``        — primitives (embeddings, norms, resizes,
-                                   warps, DCT/JPEG), and the deformable conv
+                                   warps, blur, DCT/JPEG), and the deformable conv
                                    and flash attention, whose CUDA kernels
                                    live in ``csrc/``.
 - ``flair_tpu_torch.operators``  — degradation operators (x8/x16 SVD SRConv,
                                    gaussian/jpeg PseudoSR).
 - ``flair_tpu_torch.models``     — BicubicUNet, BlurUNet, SPyNet, BasicVSR++,
-                                   blocks.
+                                   blocks, CodeFormer, ParseNet.
+- ``flair_tpu_torch.face``       — face prior: host alignment geometry,
+                                   on-device crop / mask / paste.
 - ``flair_tpu_torch.diffusion``  — schedules, respacing, guided sampler.
 - ``flair_tpu_torch.pipeline``   — windowed video restoration driver.
 - ``flair_tpu_torch.utils``      — flax → torch weight conversion, devices,

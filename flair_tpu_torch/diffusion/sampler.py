@@ -5,7 +5,9 @@ guided_diffusion/gaussian_diffusion.py:372-689). Per step (:423-517):
 
   1. denoise:      x0 = p_mean_variance(model(x, t))
   2. data consist: x0 ← x0 − γ_t · restore_fn(x0), clip
-  3. (face prior:  not in this package yet; ``p_sample`` has no face hook)
+  3. face prior:   x0 ← w_t·x0 + (1−w_t)·clip(face_fn(x0, x_t)) for
+                   τ ≤ t ≤ start_timestep (a Python ``if`` where JAX has
+                   ``lax.cond``)
   4. pin overlap:  first OVERLAP frames ← prev_recon
   5. update:       ddpm (FLAIR's ρ rule) or η-DDIM
 
@@ -90,12 +92,15 @@ def guidance_tables(d: Diffusion, cfg: GuidanceConfig):
 
 
 def p_sample(d: Diffusion, model_out, x, t: int, z, *, gamma_t: float,
-             rho: float, clip_denoised: bool = True,
-             restore_fn: Optional[Callable] = None, pin_mask=None,
+             rho: float, w_t: float = 1.0, in_face_window: bool = False,
+             clip_denoised: bool = True,
+             restore_fn: Optional[Callable] = None,
+             face_fn: Optional[Callable] = None, pin_mask=None,
              pin_values=None, rule: str = "ddpm", eta: float = 0.0):
     """One guided reverse step given the raw model output and pre-drawn
     gaussian noise ``z`` (gaussian_diffusion.py:423-517). ``t`` is the
-    shared spaced step. Returns (sample, pred_xstart).
+    shared spaced step. ``face_fn(x0, x)`` is fused with weight ``w_t``
+    when ``in_face_window``. Returns (sample, pred_xstart).
 
     - ``"ddpm"``: FLAIR's ρ-interpolated update
       x_{t−1} = √ᾱ′·x0 + 1[t≠0]·√(1−ᾱ′)·(√(1−ρ)·ε̂ + √ρ·z).
@@ -109,6 +114,11 @@ def p_sample(d: Diffusion, model_out, x, t: int, z, *, gamma_t: float,
         x0 = x0 - gamma_t * restore_fn(x0)
         if clip_denoised:
             x0 = x0.clamp(-1, 1)
+    if face_fn is not None and in_face_window:
+        fused = face_fn(x0, x)
+        if clip_denoised:
+            fused = fused.clamp(-1, 1)
+        x0 = w_t * x0 + (1 - w_t) * fused
     if pin_mask is not None:
         x0 = torch.where(pin_mask, pin_values, x0)
     eps = predict_eps_from_xstart(d, x, tb, x0)
@@ -131,20 +141,25 @@ def p_sample(d: Diffusion, model_out, x, t: int, z, *, gamma_t: float,
 
 
 def make_guided_update(d: Diffusion, cfg: GuidanceConfig, *, restore_fn=None,
-                       rule: str = "ddpm", eta: float = 0.0):
+                       face_fn=None, rule: str = "ddpm", eta: float = 0.0):
     """The guidance half of a step, with the ws/γ tables bound:
     ``update(x, model_out, t, z, pin_mask=None, pin_values=None,
-    restore_args=()) -> sample``; ``restore_fn(x0, *restore_args)``."""
-    _, _, gammas, _ = guidance_tables(d, cfg)
+    restore_args=(), face_args=None) -> sample``; ``restore_fn(x0,
+    *restore_args)``, ``face_fn(x0, x_t, *face_args)``. ``face_args=None``
+    runs the step without the face prior (a window with no face)."""
+    _, ws, gammas, start_timestep = guidance_tables(d, cfg)
 
     def update(x, model_out, t, z, pin_mask=None, pin_values=None,
-               restore_args=()):
-        rfn = None
+               restore_args=(), face_args=None):
+        rfn = ffn = None
         if restore_fn is not None:
             rfn = lambda x0: restore_fn(x0, *restore_args)  # noqa: E731
+        if face_fn is not None and face_args is not None:
+            ffn = lambda x0, xt: face_fn(x0, xt, *face_args)  # noqa: E731
         sample, _ = p_sample(
             d, model_out, x, t, z, gamma_t=float(gammas[t]), rho=cfg.rho,
-            clip_denoised=cfg.clip_denoised, restore_fn=rfn,
+            w_t=float(ws[t]), in_face_window=cfg.tau <= t <= start_timestep,
+            clip_denoised=cfg.clip_denoised, restore_fn=rfn, face_fn=ffn,
             pin_mask=pin_mask, pin_values=pin_values, rule=rule, eta=eta)
         return sample
 
@@ -162,21 +177,27 @@ def draw_noise(shape, like: torch.Tensor, generator=None, noise_fn=None):
 
 
 def guided_sample_steps(d: Diffusion, model_fn, noise, cfg: GuidanceConfig,
-                        *, restore_fn=None, pin_mask=None, pin_values=None,
-                        update=None, restore_args=(), rule: str = "ddpm",
-                        eta: float = 0.0, generator=None,
-                        noise_fn=None) -> torch.Tensor:
+                        *, restore_fn=None, face_fn=None, pin_mask=None,
+                        pin_values=None, update=None, restore_args=(),
+                        face_args=None, rule: str = "ddpm", eta: float = 0.0,
+                        generator=None, noise_fn=None) -> torch.Tensor:
     """The guided sampler: one model call and one update per step, from
     ``noise`` (x_T) down to t=0. ``model_fn(x, t)`` gets the spaced step.
     Pass ``update`` (from :func:`make_guided_update`) to share one across
-    windows; otherwise one is built from ``restore_fn(x0)``."""
+    windows, with this window's ``restore_args`` / ``face_args``; otherwise
+    one is built from ``restore_fn(x0)`` and ``face_fn(x0, x_t)``."""
     indices, _, _, _ = guidance_tables(d, cfg)
     if update is None:
         rfn = None if restore_fn is None else (lambda x0, *a: restore_fn(x0))
-        update = make_guided_update(d, cfg, restore_fn=rfn, rule=rule, eta=eta)
+        ffn = None if face_fn is None else (
+            lambda x0, xt, *a: face_fn(x0, xt))
+        update = make_guided_update(d, cfg, restore_fn=rfn, face_fn=ffn,
+                                    rule=rule, eta=eta)
+        face_args = None if face_fn is None else ()
     x = noise
     for t in indices.tolist():
         z = draw_noise(x.shape, x, generator, noise_fn)
         model_out = model_fn(x, t)
-        x = update(x, model_out, t, z, pin_mask, pin_values, restore_args)
+        x = update(x, model_out, t, z, pin_mask, pin_values, restore_args,
+                   face_args)
     return x

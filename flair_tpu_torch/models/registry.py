@@ -1,7 +1,8 @@
 """Model registry: denoisers and temporal modules by name.
 
 Counterpart of ``flair_tpu/models/registry.py``; this package registers
-``bicubic_unet``, ``blur_unet``, ``spynet`` and ``basicvsrpp``."""
+``bicubic_unet``, ``blur_unet``, ``spynet``, ``basicvsrpp``, ``codeformer``,
+``vqautoencoder`` and ``parsenet``."""
 
 from __future__ import annotations
 
@@ -22,12 +23,17 @@ def register_model(name: str):
 
 def get_model(name: str, **kwargs):
     if name not in _REGISTRY:
-        from . import adm, sr3, spynet, vsrpp  # noqa: F401  (registration)
+        _register_all()
     if name not in _REGISTRY:
         raise KeyError(f"unknown model: {name}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name](**kwargs)
 
 
 def list_models():
-    from . import adm, sr3, spynet, vsrpp  # noqa: F401
+    _register_all()
     return sorted(_REGISTRY)
+
+
+def _register_all():
+    from . import (adm, codeformer, parsenet, sr3, spynet,  # noqa: F401
+                   vsrpp)

@@ -1,4 +1,4 @@
-"""Windowed guided restoration of a face-video clip (face prior off).
+"""Windowed guided restoration of a face-video clip.
 
 Counterpart of ``flair_tpu/pipeline/video.py`` (demo driver
 scripts/video_sample.py:265-497):
@@ -11,11 +11,16 @@ scripts/video_sample.py:265-497):
 - the gaussian/jpeg tasks condition SPyNet on the bicubic-upscaled degraded
   frames (video_sample.py:405-425) while the model input is the
   area-upscaled ``low_res``; their correction is PseudoSR's null-space
-  step, with the JPEG round-trip for jpeg.
+  step, with the JPEG round-trip for jpeg;
+- the face prior (x8/x16 demo): the face helper's affine matrices are
+  computed once per window from the init frames, and every step in the
+  face window crops, restores, parses, blurs and pastes on the device
+  (``face/helper.make_face_fn_p``); ParseNet's background class on the
+  init frames down-weights VSR++ propagation (``vsrpp_bg_weight``).
 
 The window loop and the step loop are plain Python (the JAX package's
 "steps" two-program dispatch and its scan forms collapse into one loop
-here). The face prior and multi-device meshes are not in this package yet.
+here). Multi-device meshes are not in this package yet.
 """
 
 from __future__ import annotations
@@ -29,6 +34,7 @@ import torch
 from ..diffusion.gaussian import Diffusion, make_task_diffusion, q_sample
 from ..diffusion.sampler import (
     GuidanceConfig, draw_noise, guided_sample_steps, make_guided_update)
+from ..face.helper import make_face_fn_p
 from ..operators.factory import BLUR_TASKS, get_operator, make_restore_fn_p
 from ..ops.resize import resize_area, resize_bicubic
 from ..utils.device import resolve_device
@@ -117,6 +123,19 @@ def rnn_input_for(frames01: torch.Tensor, init: torch.Tensor,
     return torch.clamp(resize_bicubic(frames01, size) * 2.0 - 1.0, -1.0, 1.0)
 
 
+def _fill_missing_matrices(mats):
+    """Give frames with no detected face (None) the nearest frame's matrix.
+    Returns (T, 2, 3) float32, or None when no frame has a face
+    (flair_tpu/pipeline/video.py:135-151)."""
+    idx = [i for i, m in enumerate(mats) if m is not None]
+    if not idx:
+        return None
+    return np.stack([
+        mats[i] if mats[i] is not None
+        else mats[min(idx, key=lambda k: abs(k - i))]
+        for i in range(len(mats))]).astype(np.float32)
+
+
 @torch.no_grad()
 def restore_video(
     degraded01: np.ndarray,
@@ -149,10 +168,15 @@ def restore_video(
     respaced ``cfg.steps="ddimN"``).
     ``pad_tail`` repeats the last frame to fill a short tail window.
     Noise: ``noise_fn(shape)`` when given, else ``generator``. Runs on
-    ``device`` (default cuda; raises if CUDA is missing)."""
-    if any(a is not None for a in (face_fn, face_helper, codeformer_apply,
-                                   parsenet_apply)):
-        raise NotImplementedError("the face prior is not in this package yet")
+    ``device`` (default cuda; raises if CUDA is missing).
+
+    Face prior: ``face_fn(x0, x_t)`` fixed for every window, or
+    ``face_helper`` (``get_affine_matrices``, once per window on the init
+    frames) with ``codeformer_apply`` and optionally ``parsenet_apply``
+    (``wrappers.wrap_codeformer`` / ``wrap_parsenet``). A window where any
+    clip has no face runs without it. With ``parsenet_apply`` and
+    ``cfg.vsrpp_bg_weight > 0`` the denoiser gets VSR++ weights:
+    ``vsrpp_bg_weight`` on ParseNet's background class, 1 elsewhere."""
     if sampler not in ("steps", "ddim"):
         raise ValueError(f"unknown sampler: {sampler!r}")
     dev = resolve_device(device)
@@ -170,12 +194,10 @@ def restore_video(
         flat = x0.reshape((x0.shape[0] * x0.shape[1],) + x0.shape[2:])
         return restore_p(flat, degraded).reshape(x0.shape)
 
-    g = guidance or GuidanceConfig(
-        w=cfg.w, rho=cfg.rho, noise_level=cfg.noise_level, zeta=cfg.zeta,
-        tau=cfg.tau, t_start=cfg.t_start, use_aux=False)
-    update = make_guided_update(d, g, restore_fn=restore_fn_p,
-                                rule="ddim" if sampler == "ddim" else "ddpm",
-                                eta=eta)
+    face_fn_p = face_fn     # called with face_args () when fixed
+    if face_fn is None and codeformer_apply is not None:
+        face_fn_p = make_face_fn_p(codeformer_apply, parsenet_apply,
+                                   face_size=cfg.output_size)
     outputs = [None] * t_all
     prev_recon = None  # (B, overlap, H, W, 3) tail of the previous window
     for start, length in window_slices(t_all, win, overlap):
@@ -199,14 +221,39 @@ def restore_video(
             pin_values = torch.zeros_like(x_t)
             pin_values[:, :overlap] = prev_recon
         flows = None if flows_fn is None else flows_fn(rnn_input)
+        # x8/x16: down-weight VSR++ propagation on the parsed background
+        # (video_sample.py:427-444)
+        vsrpp_weights = None
+        if cfg.vsrpp_bg_weight > 0 and parsenet_apply is not None:
+            logits = parsenet_apply(init.reshape(nclips * tw, *init.shape[2:]))
+            bg = (torch.argmax(logits, dim=-1) == 0).float()[..., None]
+            vsrpp_weights = (bg * cfg.vsrpp_bg_weight + (1.0 - bg)).reshape(
+                nclips, tw, *bg.shape[1:])
+        # face matrices once per window on the init frames
+        # (video_sample.py:446-448)
+        face_args = () if face_fn is not None else None
+        if (face_fn is None and face_helper is not None
+                and codeformer_apply is not None):
+            mats = [_fill_missing_matrices(face_helper.get_affine_matrices(
+                        ((init[i] + 1.0) / 2.0).float().cpu().numpy(),
+                        only_keep_largest=True, eye_dist_threshold=0.1))
+                    for i in range(nclips)]
+            if all(m is not None for m in mats):
+                face_args = (torch.as_tensor(np.stack(mats), device=dev),)
+        g = guidance or GuidanceConfig(
+            w=cfg.w, rho=cfg.rho, noise_level=cfg.noise_level, zeta=cfg.zeta,
+            tau=cfg.tau, t_start=cfg.t_start, use_aux=face_args is not None)
+        update = make_guided_update(
+            d, g, restore_fn=restore_fn_p, face_fn=face_fn_p,
+            rule="ddim" if sampler == "ddim" else "ddpm", eta=eta)
 
         def model_fn(x, t):
-            return model_apply(x, t, low_res, rnn_input, None, flows)
+            return model_apply(x, t, low_res, rnn_input, vsrpp_weights, flows)
 
         sample = guided_sample_steps(
             d, model_fn, x_t, g, update=update, pin_mask=pin_mask,
             pin_values=pin_values, restore_args=(degraded_pm1,),
-            generator=generator, noise_fn=noise_fn)
+            face_args=face_args, generator=generator, noise_fn=noise_fn)
         keep_from = overlap if prev_recon is not None else 0
         recon = sample.float().cpu().numpy()
         for i in range(keep_from, length):

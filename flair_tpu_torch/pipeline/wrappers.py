@@ -6,8 +6,12 @@ respace.py:138-167): the sampler hands the spaced step t;
 - the BlurUNet receives ``scale_timesteps(map_timesteps(t))``, the
   original-schedule index, as int64 for every frame.
 
-Each wrapper carries ``.flows_fn(rnn_input)`` — the SPyNet flows, computed
-once per window — and ``.model``.
+Each denoiser wrapper carries ``.flows_fn(rnn_input)`` — the SPyNet flows,
+computed once per window — and ``.model``.
+
+``wrap_codeformer`` / ``wrap_parsenet`` turn the face models into the
+``codeformer_apply`` / ``parsenet_apply`` callables of the face prior:
+NHWC in the input's dtype in and out, NCHW in the model's dtype inside.
 """
 
 from __future__ import annotations
@@ -52,3 +56,27 @@ def wrap_blur_model(d: Diffusion, model, *, enable_cross_frames: bool = True):
             x.shape[0], x.shape[1])
 
     return _wrap(model, cond, enable_cross_frames)
+
+
+def wrap_codeformer(model):
+    """``apply(faces (N, S, S, 3)) → restored faces`` for a CodeFormer,
+    applied as the demo applies it, w = 1 with AdaIN
+    (video_sample.py:450-452)."""
+
+    def apply(faces):
+        out, _, _ = model(faces.permute(0, 3, 1, 2), w=1.0, adain=True)
+        return out.permute(0, 2, 3, 1).to(faces.dtype)
+
+    apply.model = model
+    return apply
+
+
+def wrap_parsenet(model):
+    """``apply(faces (N, S, S, 3)) → (N, S, S, 19) logits`` for a ParseNet."""
+
+    def apply(faces):
+        logits, _ = model(faces.permute(0, 3, 1, 2))
+        return logits.permute(0, 2, 3, 1).to(faces.dtype)
+
+    apply.model = model
+    return apply

@@ -3,8 +3,12 @@
 Both packages restore the same 64² clip with the same weights and zero
 noise (as tests/test_goldens.py does for the JAX package), through two
 windows (the tail window padded, the overlap pinned), and agree to ≥45 dB
-PSNR in float32. A subprocess checks that the port imports neither JAX nor
-the JAX package.
+PSNR in float32 with the face prior off, and to ≥40 dB (the goldens' bar)
+with it on: tiny CodeFormer / ParseNet carried across from flax, a stub
+face helper with fixed matrices, VSR++ background weights. A subprocess
+checks that the port imports neither JAX nor the JAX package. JAX is
+imported inside the parity tests, so the ``cuda`` cases run on a machine
+without it (``python -m pytest -m cuda tests/test_torch_pipeline.py``).
 """
 
 import dataclasses
@@ -16,9 +20,6 @@ import sys
 import numpy as np
 import pytest
 import torch
-
-import jax
-import jax.numpy as jnp
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -44,6 +45,17 @@ def task_config(pkg_configs, meta, steps):
         pkg_configs[meta.get("task", "x8_bicubic")], output_size=64,
         input_size=64 // meta["factor"], steps=steps, w=meta["w"],
         rho=0.35, zeta=-1, tau=0, noise_level=0.0, vsrpp_bg_weight=0.0)
+
+
+def zero_jax_noise(monkeypatch):
+    """The JAX package's noise draws return zeros (the port gets
+    ``noise_fn`` zeros), as tests/test_goldens.py runs it."""
+    import jax
+    import jax.numpy as jnp
+
+    monkeypatch.setattr(jax.random, "normal",
+                        lambda key, shape=None, dtype=jnp.float32:
+                        jnp.zeros(shape if shape is not None else (), dtype))
 
 
 def run_port(flat, degraded01, cfg, sampler, **kw):
@@ -87,9 +99,7 @@ def test_restore_video_matches_flair_tpu(monkeypatch, gold_name, sampler,
     cfg_j = task_config(jvideo.TASK_CONFIGS, meta, steps)
     d = make_task_diffusion(cfg_j.task, cfg_j.steps)
     apply = wrap_bicubic_model(d, JU(**MODEL_KW), unflatten_params(flat))
-    monkeypatch.setattr(jax.random, "normal",
-                        lambda key, shape=None, dtype=jnp.float32:
-                        jnp.zeros(shape if shape is not None else (), dtype))
+    zero_jax_noise(monkeypatch)
     out_j = jvideo.restore_video(
         clip, cfg_j, apply, diffusion=d,
         guidance=GuidanceConfig(use_aux=False, w=cfg_j.w, rho=cfg_j.rho,
@@ -158,9 +168,7 @@ def test_restore_video_blur_tasks_match_flair_tpu(monkeypatch, gold_name,
     d_j = jd.make_task_diffusion(cfg_j.task, cfg_j.steps)
     apply = j_wrap(d_j, JB(**BLUR_KW, dcn_patch_size=None),
                    unflatten_params(flat))
-    monkeypatch.setattr(jax.random, "normal",
-                        lambda key, shape=None, dtype=jnp.float32:
-                        jnp.zeros(shape if shape is not None else (), dtype))
+    zero_jax_noise(monkeypatch)
     out_j = jvideo.restore_video(
         clip, cfg_j, apply, diffusion=d_j,
         guidance=guidance(jd, cfg_j),
@@ -175,6 +183,11 @@ def test_port_imports_neither_jax_nor_flair_tpu():
         "import sys\n"
         "import flair_tpu_torch\n"
         "import flair_tpu_torch.diffusion, flair_tpu_torch.models.sr3\n"
+        "import flair_tpu_torch.face, flair_tpu_torch.face.helper\n"
+        "import flair_tpu_torch.models.codeformer\n"
+        "import flair_tpu_torch.models.parsenet, flair_tpu_torch.ops.blur\n"
+        "import flair_tpu_torch.ops.warp, flair_tpu_torch.models.registry\n"
+        "flair_tpu_torch.models.registry.list_models()\n"
         "import flair_tpu_torch.models.adm, flair_tpu_torch.ops.jpeg\n"
         "import flair_tpu_torch.operators, flair_tpu_torch.ops.dcn\n"
         "import flair_tpu_torch.operators.pseudo_sr\n"
@@ -201,3 +214,222 @@ def test_chip_smoke_imports_neither_jax_nor_flair_tpu():
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+# ------------------------------------------------------------- face prior ---
+
+FACE_CF_KW = dict(dim_embd=64, n_head=4, n_layers=1, codebook_size=32,
+                  latent_size=256, connect_list=("32", "64"), nf=32,
+                  ch_mult=(1, 2, 2))      # 64² faces, a 16² latent
+FACE_PN_KW = dict(in_size=64, out_size=64, min_feat_size=16, base_ch=16,
+                  res_depth=1, ch_range=(16, 64))
+FACE_MATRIX = np.array([[1.05, 0.06, -4.0], [-0.06, 1.05, 1.5]], np.float32)
+
+
+class FixedFaceHelper:
+    """The face helper's interface with fixed matrices; the last frame of
+    every window has no face (the pipeline gives it its neighbour's)."""
+
+    def get_affine_matrices(self, frames01, **kw):
+        return [FACE_MATRIX] * (len(frames01) - 1) + [None]
+
+
+def flax_face_models():
+    """Tiny flax CodeFormer and ParseNet at 64², every leaf perturbed by
+    seeded noise (ParseNet's running statistics too); returns the modules
+    and their flat variables."""
+    import jax
+    import jax.numpy as jnp
+    from flair_tpu.models.codeformer import CodeFormer as JCF
+    from flair_tpu.models.parsenet import ParseNet as JPN
+    from flair_tpu.utils.checkpoint import flatten_params
+
+    rng = np.random.default_rng(11)
+    x = jnp.zeros((1, 64, 64, 3))
+    out = []
+    for module, init in (
+            (JCF(**FACE_CF_KW), lambda m, k: m.init(k, x, w=1.0, adain=True)),
+            (JPN(**FACE_PN_KW), lambda m, k: m.init(k, x))):
+        flat = flatten_params(init(module, jax.random.PRNGKey(3)))
+        out.append((module, {
+            k: (np.abs(v) + 0.5 if k.endswith("/var") else v
+                + rng.standard_normal(v.shape) * 0.05).astype(np.float32)
+            for k, v in flat.items()}))
+    return out
+
+
+def port_face_models(flat_cf, flat_pn):
+    from flair_tpu_torch.models.codeformer import CodeFormer
+    from flair_tpu_torch.models.parsenet import ParseNet
+    from flair_tpu_torch.pipeline.wrappers import wrap_codeformer, wrap_parsenet
+    from flair_tpu_torch.utils.convert import (
+        from_flax_codeformer, from_flax_parsenet)
+
+    cf, pn = CodeFormer(**FACE_CF_KW), ParseNet(**FACE_PN_KW)
+    cf.load_state_dict(from_flax_codeformer(flat_cf), strict=True)
+    pn.load_state_dict(from_flax_parsenet(flat_pn), strict=True)
+    return wrap_codeformer(cf.eval()), wrap_parsenet(pn.eval())
+
+
+def test_restore_video_face_on_matches_flair_tpu(monkeypatch):
+    """x8 ``ddim`` over 4 steps and two windows with the face prior on:
+    crop → CodeFormer → ParseNet mask → paste in every step, VSR++
+    background weights 0.93 from ParseNet on the init frames."""
+    from flair_tpu.diffusion import make_task_diffusion
+    from flair_tpu.models.sr3 import BicubicUNet as JU
+    from flair_tpu.pipeline import video as jvideo
+    from flair_tpu.pipeline.wrappers import wrap_bicubic_model
+    from flair_tpu.utils.checkpoint import unflatten_params
+    from flair_tpu_torch.pipeline.video import TASK_CONFIGS
+
+    _, meta, flat = golden("x8_s64")
+    (jcf, flat_cf), (jpn, flat_pn) = flax_face_models()
+    clip = np.random.default_rng(0).uniform(0, 1, (4, 8, 8, 3)).astype(
+        np.float32)
+
+    def cfg_of(pkg_configs):
+        return dataclasses.replace(task_config(pkg_configs, meta, "ddim4"),
+                                   vsrpp_bg_weight=0.93)
+
+    cf_t, pn_t = port_face_models(flat_cf, flat_pn)
+    from flair_tpu_torch.diffusion import make_task_diffusion as t_diffusion
+    from flair_tpu_torch.models.sr3 import BicubicUNet
+    from flair_tpu_torch.pipeline.video import restore_video
+    from flair_tpu_torch.pipeline.wrappers import wrap_bicubic_model as t_wrap
+    from flair_tpu_torch.utils.convert import from_flax_bicubic_unet
+
+    cfg_t = cfg_of(TASK_CONFIGS)
+    d_t = t_diffusion(cfg_t.task, cfg_t.steps, device="cpu")
+    model = BicubicUNet(**MODEL_KW)
+    model.load_state_dict(from_flax_bicubic_unet(flat))
+    out_t = restore_video(
+        clip, cfg_t, t_wrap(d_t, model), diffusion=d_t, win=3, overlap=1,
+        sampler="ddim", device="cpu", face_helper=FixedFaceHelper(),
+        codeformer_apply=cf_t, parsenet_apply=pn_t,
+        noise_fn=lambda s: np.zeros(s, np.float32))
+
+    cfg_j = cfg_of(jvideo.TASK_CONFIGS)
+    d_j = make_task_diffusion(cfg_j.task, cfg_j.steps)
+    apply = wrap_bicubic_model(d_j, JU(**MODEL_KW), unflatten_params(flat))
+    cf_p, pn_p = unflatten_params(flat_cf), unflatten_params(flat_pn)
+    zero_jax_noise(monkeypatch)
+    out_j = jvideo.restore_video(
+        clip, cfg_j, apply, diffusion=d_j, win=3, overlap=1, sampler="ddim",
+        face_helper=FixedFaceHelper(),
+        codeformer_apply=lambda f: jcf.apply(cf_p, f, w=1.0, adain=True)[0],
+        parsenet_apply=lambda f: jpn.apply(pn_p, f)[0])
+    assert out_t.shape == out_j.shape == (4, 64, 64, 3)
+    p = psnr(out_t, out_j)
+    assert p >= 40.0, p
+
+
+def stub_face_models():
+    def codeformer_apply(faces):
+        return torch.clamp(faces + 0.5, -1, 1)
+
+    def parsenet_apply(imgs):
+        # background (class 0) on the left half, class 1 on the right
+        n, h, w, _ = imgs.shape
+        left = (torch.arange(w) < w // 2)[None, None, :, None]
+        eye = torch.eye(19)
+        return torch.where(left, eye[0], eye[1]).expand(n, h, w, 19)
+
+    return codeformer_apply, parsenet_apply
+
+
+def test_restore_video_face_fusion_and_vsrpp_weights():
+    """tests/test_pipeline.py's wiring test at 64² (the mask blur's
+    reflect padding needs more than 50 px): the face changes the output
+    against no face, and the x8 VSR++ weights come from the ParseNet
+    background mask (video_sample.py:427-448)."""
+    from flair_tpu_torch.pipeline.video import TASK_CONFIGS, restore_video
+
+    cfg = dataclasses.replace(TASK_CONFIGS["x8_bicubic"], output_size=64,
+                              input_size=8, steps="2", tau=0)
+    captured = {}
+
+    def model_apply(x, t, low_res, rnn, w, flows=None):
+        captured["vsrpp_weights"] = w
+        return torch.zeros_like(x)
+
+    class StubHelper:
+        def get_affine_matrices(self, frames01, **kw):
+            ident = np.array([[1.0, 0, 0], [0, 1.0, 0]])
+            return [ident] * (len(frames01) - 1) + [None]   # one miss
+
+    codeformer_apply, parsenet_apply = stub_face_models()
+    frames = np.random.RandomState(2).rand(2, 8, 8, 3).astype(np.float32)
+
+    def run(**face):
+        return restore_video(frames, cfg, model_apply, win=2, overlap=1,
+                             device="cpu",
+                             generator=torch.Generator().manual_seed(0),
+                             **face)
+
+    out_face = run(face_helper=StubHelper(), codeformer_apply=codeformer_apply,
+                   parsenet_apply=parsenet_apply)
+    w = captured["vsrpp_weights"]
+    assert w is not None and tuple(w.shape) == (1, 2, 64, 64, 1)
+    assert np.allclose(np.unique(w.numpy()), [0.93, 1.0])
+    out_plain = run()
+    assert captured["vsrpp_weights"] is None
+    assert out_face.shape == out_plain.shape == (2, 64, 64, 3)
+    assert not np.allclose(out_face, out_plain)
+    # a window where no frame has a face runs without the prior
+    class NoFace:
+        def get_affine_matrices(self, frames01, **kw):
+            return [None] * len(frames01)
+
+    out_none = run(face_helper=NoFace(), codeformer_apply=codeformer_apply)
+    np.testing.assert_array_equal(out_none, out_plain)
+
+
+def test_restore_video_face_prior_defaults_to_cuda(monkeypatch):
+    from flair_tpu_torch.pipeline.video import TASK_CONFIGS, restore_video
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    codeformer_apply, parsenet_apply = stub_face_models()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        restore_video(np.zeros((2, 8, 8, 3), np.float32),
+                      TASK_CONFIGS["x8_bicubic"], lambda *a: None,
+                      face_helper=FixedFaceHelper(),
+                      codeformer_apply=codeformer_apply,
+                      parsenet_apply=parsenet_apply)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device and nvcc (run on the GPU machine)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aligned", [False, True])
+def test_cuda_face_fn_matches_cpu(cuda_device, aligned):
+    """The face fusion with seeded random tiny CodeFormer / ParseNet on the
+    card (cuDNN, grid_sample) against the CPU, float32 with TF32 off."""
+    from flair_tpu_torch.face.helper import make_face_fn_p
+    from flair_tpu_torch.models.codeformer import CodeFormer
+    from flair_tpu_torch.models.parsenet import ParseNet
+    from flair_tpu_torch.pipeline.wrappers import wrap_codeformer, wrap_parsenet
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cf, pn = CodeFormer(**FACE_CF_KW), ParseNet(**FACE_PN_KW)
+    cf.random_init(seed=1, scale=0.2)
+    pn.random_init(seed=2, scale=0.2)
+    rng = np.random.default_rng(4)
+    x0 = torch.from_numpy(rng.uniform(-1, 1, (1, 3, 64, 64, 3)).astype(
+        np.float32))
+    mats = torch.from_numpy(np.tile(FACE_MATRIX, (3, 1, 1)))
+    outs = []
+    for dev in ("cpu", cuda_device):
+        fn = make_face_fn_p(wrap_codeformer(cf.to(dev).eval()),
+                            wrap_parsenet(pn.to(dev).eval()), face_size=64,
+                            aligned=aligned)
+        with torch.no_grad():
+            outs.append(fn(x0.to(dev), x0.to(dev), mats.to(dev)).cpu())
+    torch.backends.cudnn.allow_tf32 = True
+    assert torch.isfinite(outs[1]).all()
+    assert psnr(outs[0].numpy() / 2, outs[1].numpy() / 2) >= 50.0
