@@ -1,7 +1,8 @@
 """GPU smoke run of the flair_tpu_torch port: builds the CUDA kernels, holds
 each against its plain PyTorch version, and drives the port's main paths
 (x8_bicubic guided DDIM with the face prior on and off, gaussian) at full
-width on one card.
+width on one card, then the entry point itself (``flair_tpu_torch.cli``,
+x8 with RetinaFace detection and jpeg, on PNG clips).
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases build,kernel_dcn,kernel_flash
@@ -31,6 +32,18 @@ Phases, one JSON line each (a record per shape for the kernels):
   slice_full_face  slice_full with the face prior on: CodeFormer and
                ParseNet at the JAX defaults, bf16, bench.py's fixed matrix;
                face calls timed with CUDA events around each
+  detector     RetinaFace ResNet50 (f32, seeded random weights) on one 512²
+               frame: cuda (TF32 off) against cpu on the same weights
+               (loc / conf / landms), network timed with CUDA events, host
+               decode + NMS with perf_counter; detect_faces' boxes with NMS
+               at 0.4 on a second seeded model whose scores spread, the
+               threshold set where each passing score is DET_GAP errors
+               from the next
+  cli          flair_tpu_torch.cli.main in process, seeded random weights,
+               on PNG clips written here: x8_bicubic --sampler ddim --steps
+               25 with the face stack on (10 frames, 64²) and jpeg ... --no-face
+               (10 frames, 128²); K1 / K2 launches held to the expected
+               counts, 10 finite 512² PNGs read back per run
   profile_step (only when asked for) one denoiser call of each full-width
                model, and one face call, under torch.profiler: device time
                by kernel and by class, idle share
@@ -45,6 +58,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import copy
 import dataclasses
 import json
 import math
@@ -53,18 +67,21 @@ import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from flair_tpu_torch import cli
 from flair_tpu_torch.diffusion import GuidanceConfig, make_task_diffusion
-from flair_tpu_torch.face.helper import make_face_fn_p
+from flair_tpu_torch.face.helper import FaceRestoreHelper, make_face_fn_p
 from flair_tpu_torch.models.adm import BlurUNet
 from flair_tpu_torch.models.codeformer import CodeFormer
 from flair_tpu_torch.models.parsenet import ParseNet
 from flair_tpu_torch.models.registry import get_model
+from flair_tpu_torch.models.retinaface import RetinaFace, RetinaFaceDetector
 from flair_tpu_torch.models.sr3 import BicubicUNet
 from flair_tpu_torch.ops.attention import dot_product_attention, flash_attention
 from flair_tpu_torch.ops.dcn import deform_conv2d_raw
@@ -78,10 +95,11 @@ from flair_tpu_torch.pipeline.wrappers import (
 from flair_tpu_torch.utils import build
 from flair_tpu_torch.utils.convert import (
     from_flax_bicubic_unet, from_flax_blur_unet)
+from flair_tpu_torch.utils.png import read_png, write_png
 
 ALL_PHASES = ("device", "build", "kernel_dcn", "kernel_flash", "slice_small",
               "slice_small_blur", "slice_small_face", "slice_full",
-              "slice_full_gaussian", "slice_full_face")
+              "slice_full_gaussian", "slice_full_face", "detector", "cli")
 EXTRA_PHASES = ("profile_step",)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MEM_BW = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
@@ -121,9 +139,20 @@ SMALL_PSNR_DB = 50.0   # cuda kernel vs cpu plain, f32 end to end
 FULL_STEPS = "ddim25"
 SLEEP_CYCLES_PER_CALL = 400_000   # ~0.2 ms at the H100's SM clock
 DCN_PER_STEP = {"slice_full": 108, "slice_full_gaussian": 180,
-                "slice_full_face": 108}
+                "slice_full_face": 108, "cli_x8": 108, "cli_jpeg": 180}
 FLASH_PER_STEP = {"slice_full": 0, "slice_full_gaussian": 16,
-                  "slice_full_face": 0}
+                  "slice_full_face": 0, "cli_x8": 0, "cli_jpeg": 16}
+# the cli phase: (path, argv after the task's clip, frames, input size)
+CLI_RUNS = (("cli_x8", ["x8_bicubic", "--sampler", "ddim", "--steps", "25"],
+             10, 64),
+            ("cli_jpeg", ["jpeg", "--sampler", "ddim", "--steps", "25",
+                          "--no-face"], 10, 128))
+CLI_STEPS = 25
+DET_SIZE = 512
+DET_TOL = 1e-4          # max abs, cuda (TF32 off) vs cpu, f32 outputs
+DET_GAP = 10            # passing scores sit this many errors apart
+DET_HEAD_SCALE = 0.01   # the box check's heads: scores spread about 0.5
+DET_MIN_BOXES = 10      # anchors the box check's threshold must pass
 FACE_MATRIX = np.array([[1.1, 0.08, 12.0], [-0.08, 1.1, -9.0]],
                        np.float32)   # bench.py:266-268
 # the small face models: 64² faces (a 16² latent), as tests/test_torch_pipeline.py
@@ -767,6 +796,208 @@ def phase_slice_full_face(ctx):
              lambda d: wrap_bicubic_model(d, model), clip, face=face)
 
 
+def detector_pair(model):
+    """The same ``RetinaFaceDetector`` weights on the cpu and on the card."""
+    return {dev: RetinaFaceDetector(
+        (model if dev == "cpu" else copy.deepcopy(model).to(dev)).eval())
+        for dev in ("cpu", "cuda")}
+
+
+def output_err(dets, x):
+    """Each device's network outputs on ``x``, and their max abs gaps."""
+    out = {dev: d.network(x) for dev, d in dets.items()}
+    err = {name: float(np.abs(a - b).max()) for name, a, b in
+           zip(("loc", "conf", "landms"), out["cuda"], out["cpu"])}
+    return out, err
+
+
+def phase_detector(ctx):
+    """RetinaFace ResNet50 as the CLI builds it (f32, seeded random weights
+    at 0.02) on one seeded 512² frame: the cuda network (TF32 off) against
+    the cpu one on the same weights, and its time. Those weights score
+    every anchor alike (the body's signal dies at 0.02 a weight, so scores
+    tie in large groups), which leaves ``detect_faces`` nothing to order.
+    Its boxes are checked on a second seeded model whose scores spread:
+    the layers' own fan-in init with the heads scaled by DET_HEAD_SCALE.
+    There the box threshold keeps the top-k anchors, k the longest run of
+    cpu scores each DET_GAP errors from the next, so both devices pass the
+    same anchors in the same order, and NMS at 0.4 must drop some."""
+    model = RetinaFace(network="resnet50")
+    model.random_init(seed=0, scale=0.02)
+    dets = detector_pair(model)
+    bgr = np.random.default_rng(0).uniform(
+        0, 255, (DET_SIZE, DET_SIZE, 3)).astype(np.float32)
+    x = (bgr - np.array([104.0, 117.0, 123.0]))[None].astype(np.float32)
+    out, err = output_err(dets, x)
+
+    torch.manual_seed(0)
+    spread = RetinaFace(network="resnet50")
+    with torch.no_grad():
+        for name, p in spread.named_parameters():
+            if "_head" in name:
+                p.mul_(DET_HEAD_SCALE)
+    sdets = detector_pair(spread)
+    sout, serr = output_err(sdets, x)
+    scores = np.sort(sout["cpu"][1][0, :, 1])[::-1]
+    need = DET_GAP * max(max(serr.values()), 1e-7)
+    k = int(np.argmax(np.append(scores[:-1] - scores[1:], 0.0) <= need))
+    thr = float(scores[k - 1] + scores[k]) / 2 if k else 1.0
+    b = {dev: d.detect_faces(bgr, thr, 0.4) for dev, d in sdets.items()}
+    same = b["cuda"].shape == b["cpu"].shape
+    boxes = {"threshold": thr, "nms": 0.4, "passed": k,
+             "kept": len(b["cpu"]), "same_count": same,
+             "max_abs_err": serr,
+             "max_abs_px": (float(np.abs(b["cuda"] - b["cpu"]).max())
+                            if same and len(b["cpu"]) else 0.0)}
+
+    det = dets["cuda"]
+    t = torch.as_tensor(x, device=next(det.model.parameters()).device
+                        ).permute(0, 3, 1, 2)
+    torch.backends.cudnn.allow_tf32 = False
+    with torch.no_grad():
+        net_ms = cuda_ms(lambda: det.model(t), reps=5, warmup=2, batches=3)
+    torch.backends.cudnn.allow_tf32 = True
+    det.network = lambda _x: out["cuda"]
+    host_ms = []
+    for _ in range(5):
+        t0 = time.perf_counter()
+        det.detect_faces(bgr)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    rec = {"phase": "detector", "network": "resnet50", "frame": DET_SIZE,
+           "max_abs_err": err, "tol_abs": DET_TOL, "box_check": boxes,
+           "network_ms": net_ms, "host_decode_nms_ms": float(np.median(host_ms)),
+           "card": ctx["smi"]}
+    emit(rec)
+    if not (max(err.values()) <= DET_TOL and max(serr.values()) <= DET_TOL
+            and k >= DET_MIN_BOXES and same and len(b["cpu"]) < k
+            and boxes["max_abs_px"] <= 1e-2):
+        raise AssertionError(f"detector failed its checks: {rec}")
+
+
+class CliProbe:
+    """Within ``with``: ``restore_video``'s device-synchronised time inside
+    the CLI, the frames the CLI hands ``save_frames``, the frames in which
+    the face helper's detector found a face, and the synchronised seconds
+    and calls of detection and of the ParseNet and CodeFormer appliers
+    (inside ``restore_s``)."""
+
+    def __enter__(self):
+        self.restore_s, self.saved = 0.0, []
+        self.frames_detected = self.frames_with_face = 0
+        self.face_s = {"detect": 0.0, "parsenet": 0.0, "codeformer": 0.0}
+        self.face_calls = dict.fromkeys(self.face_s, 0)
+        self._orig = (cli.restore_video, cli.save_frames,
+                      FaceRestoreHelper.get_affine_matrices,
+                      cli.build_face_stack)
+        restore, save, mats, stack = self._orig
+
+        def synced(fn, key):
+            def run(*args, **kw):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*args, **kw)
+                torch.cuda.synchronize()
+                if key == "restore":
+                    self.restore_s += time.perf_counter() - t0
+                else:
+                    self.face_s[key] += time.perf_counter() - t0
+                    self.face_calls[key] += 1
+                return out
+            return run
+
+        timed_restore = synced(restore, "restore")
+        timed_mats = synced(mats, "detect")
+
+        def timed_stack(*args, **kw):
+            helper, cf_apply, pn_apply = stack(*args, **kw)
+            return (helper, synced(cf_apply, "codeformer"),
+                    synced(pn_apply, "parsenet"))
+
+        def kept_save(frames01, output_dir):
+            self.saved.append(np.asarray(frames01))
+            return save(frames01, output_dir)
+
+        def counted_mats(helper, frames01, **kw):
+            m = timed_mats(helper, frames01, **kw)
+            self.frames_detected += len(m)
+            self.frames_with_face += sum(a is not None for a in m)
+            return m
+
+        cli.restore_video, cli.save_frames = timed_restore, kept_save
+        FaceRestoreHelper.get_affine_matrices = counted_mats
+        cli.build_face_stack = timed_stack
+        return self
+
+    def __exit__(self, *exc):
+        (cli.restore_video, cli.save_frames,
+         FaceRestoreHelper.get_affine_matrices,
+         cli.build_face_stack) = self._orig
+
+
+def phase_cli(ctx):
+    """The entry point, in process: ``flair_tpu_torch.cli.main`` on seeded
+    random PNG clips it reads from disk, with the CLI's own seeded random
+    weights (CLI_RUNS). Each run's K1 / K2 counts are set to 0 just before
+    ``main`` and read just after, and held to the expected launches per
+    denoiser step × 25 steps × windows."""
+    with tempfile.TemporaryDirectory() as tmp:
+        for path, argv, n, size in CLI_RUNS:
+            clip_dir = os.path.join(tmp, path, "in")
+            out_dir = os.path.join(tmp, path, "out")
+            os.makedirs(clip_dir)
+            rng = np.random.default_rng(0)
+            for i in range(n):
+                write_png(os.path.join(clip_dir, f"{i:04d}.png"),
+                          rng.integers(0, 256, (size, size, 3), np.uint8))
+            n_windows = len(window_slices(n))
+            held_gib = torch.cuda.memory_allocated() / 2 ** 30
+            torch.cuda.reset_peak_memory_stats()
+            torch.cuda.synchronize()
+            deform_conv2d_raw.launches = flash_attention.launches = 0
+            t0 = time.time()
+            with CliProbe() as probe:
+                rc = cli.main(argv[:1] + ["--input-dir", clip_dir,
+                                          "--output-dir", out_dir] + argv[1:])
+                torch.cuda.synchronize()
+            secs = time.time() - t0
+            launches = {"dcn_raw": deform_conv2d_raw.launches,
+                        "flash_attn": flash_attention.launches}
+            expect = {"dcn_raw": DCN_PER_STEP[path] * CLI_STEPS * n_windows,
+                      "flash_attn": FLASH_PER_STEP[path] * CLI_STEPS
+                      * n_windows}
+            files = sorted(os.listdir(out_dir))
+            imgs = [read_png(os.path.join(out_dir, f)) for f in files]
+            face = "--no-face" not in argv
+            rec = {"phase": "cli", "path": path,
+                   "argv": argv[:1] + ["--input-dir", "<clip>"] + argv[1:],
+                   "clip": [n, size, size, 3], "rc": rc,
+                   "windows": n_windows, "files": len(files),
+                   "png_shapes": sorted({str(i.shape) for i in imgs}),
+                   "finite": all(bool(np.isfinite(f).all())
+                                 for f in probe.saved),
+                   "launches": launches, "launches_expected": expect,
+                   "frames_detected": probe.frames_detected,
+                   "frames_with_face": probe.frames_with_face,
+                   "face_seconds": probe.face_s,
+                   "face_calls": probe.face_calls,
+                   "seconds_total": secs,
+                   "seconds_restore": probe.restore_s,
+                   "ms_per_step": probe.restore_s / (CLI_STEPS * n_windows)
+                   * 1e3,
+                   "max_memory_allocated_gib":
+                       torch.cuda.max_memory_allocated() / 2 ** 30,
+                   "allocated_before_gib": held_gib,
+                   "card": ctx["smi"]}
+            emit(rec)
+            ctx.setdefault("launches", {})[path] = launches
+            if not (rc == 0 and files == [f"{i:04d}.png" for i in range(n)]
+                    and all(i.shape == (512, 512, 3) for i in imgs)
+                    and rec["finite"] and launches == expect
+                    and probe.frames_detected == (n * n_windows if face
+                                                  else 0)):
+                raise AssertionError(f"cli {path} failed its checks: {rec}")
+
+
 KERNEL_CLASSES = (   # first match wins, on the lower-cased kernel name
     ("dcn_raw (K1)", ("dcn_raw",)),
     ("flash_attn (K2)", ("flash_fwd",)),
@@ -884,12 +1115,12 @@ def main() -> int:
         kernels.append(kernel_record(
             "dcn_raw", "flair_tpu_torch/csrc/dcn_raw.cu",
             "flair_tpu/ops/dcn_pallas.py:50", ctx["dcn_rows"],
-            launches["dcn_raw"], "slice_full_face"))
+            launches["dcn_raw"], "cli_x8"))
     if "kernel_flash" in phases:
         kernels.append(kernel_record(
             "flash_attn", "flair_tpu_torch/csrc/flash_attn.cu",
             "flair_tpu/ops/attention.py:53", ctx["flash_rows"],
-            launches["flash_attn"], "slice_full_gaussian"))
+            launches["flash_attn"], "cli_jpeg"))
     if kernels:
         emit({"kernels": kernels})
     print(ctx["smi"], flush=True)

@@ -47,27 +47,46 @@ def random_init_(module: nn.Module, seed: int = 0, scale: float = 0.02) -> None:
 
 
 class Conv2d(nn.Module):
-    """k×k conv over (N, C, H, W); padding defaults to SAME (k // 2)."""
+    """k×k conv over (N, C, H, W); padding defaults to SAME (k // 2);
+    ``groups`` as in ``F.conv2d`` (flax ``feature_group_count``)."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size: int = 3,
                  stride: int = 1, padding: int | None = None,
                  use_bias: bool = True, zero_init: bool = False,
-                 dtype=torch.float32):
+                 groups: int = 1, dtype=torch.float32):
         super().__init__()
         self.stride = stride
         self.padding = kernel_size // 2 if padding is None else padding
+        self.groups = groups
         self.dtype = dtype
         self.weight = nn.Parameter(
-            torch.zeros(out_ch, in_ch, kernel_size, kernel_size))
+            torch.zeros(out_ch, in_ch // groups, kernel_size, kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_ch)) if use_bias else None
         if not zero_init:
-            _lecun_(self.weight.data, in_ch * kernel_size * kernel_size)
+            _lecun_(self.weight.data,
+                    in_ch // groups * kernel_size * kernel_size)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.dtype
         b = None if self.bias is None else self.bias.to(dt)
         return F.conv2d(x.to(dt), self.weight.to(dt), b, self.stride,
-                        self.padding)
+                        self.padding, groups=self.groups)
+
+
+class BatchNorm(nn.Module):
+    """Inference-mode BatchNorm (flax ``use_running_average=True``, eps
+    1e-5), float32 out."""
+
+    def __init__(self, channels: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x):
+        return F.batch_norm(x.float(), self.running_mean, self.running_var,
+                            self.weight, self.bias, False, 0.0, 1e-5)
 
 
 class Conv3d(nn.Module):

@@ -16,24 +16,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .common import Conv2d, random_init_
+from .common import BatchNorm, Conv2d, random_init_
 from .registry import register_model
-
-
-class BatchNorm(nn.Module):
-    """Inference-mode BatchNorm (flax ``use_running_average=True``, eps
-    1e-5), float32 out."""
-
-    def __init__(self, channels: int):
-        super().__init__()
-        self.weight = nn.Parameter(torch.ones(channels))
-        self.bias = nn.Parameter(torch.zeros(channels))
-        self.register_buffer("running_mean", torch.zeros(channels))
-        self.register_buffer("running_var", torch.ones(channels))
-
-    def forward(self, x):
-        return F.batch_norm(x.float(), self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, 1e-5)
 
 
 class PNConv(nn.Module):

@@ -2,7 +2,7 @@
 
 Counterpart of ``flair_tpu/models/registry.py``; this package registers
 ``bicubic_unet``, ``blur_unet``, ``spynet``, ``basicvsrpp``, ``codeformer``,
-``vqautoencoder`` and ``parsenet``."""
+``vqautoencoder``, ``parsenet`` and ``retinaface``."""
 
 from __future__ import annotations
 
@@ -35,5 +35,5 @@ def list_models():
 
 
 def _register_all():
-    from . import (adm, codeformer, parsenet, sr3, spynet,  # noqa: F401
-                   vsrpp)
+    from . import (adm, codeformer, parsenet, retinaface, sr3,  # noqa: F401
+                   spynet, vsrpp)

@@ -26,22 +26,34 @@ def gaussian_kernel_1d(ksize: int, sigma: float) -> np.ndarray:
     return k / k.sum()
 
 
+@functools.lru_cache(maxsize=None)
+def reflect_indices(n: int, p: int) -> np.ndarray:
+    """Source rows of an axis of ``n`` padded by ``p`` on each side with
+    ``jnp.pad(mode="reflect")``'s rule, for any ``p``: reflect-101 with
+    period 2(n - 1), the edge repeated when n = 1."""
+    i = np.arange(-p, n + p)
+    if n == 1:
+        return np.zeros_like(i)
+    m = np.mod(i, 2 * (n - 1))
+    return np.where(m < n, m, 2 * (n - 1) - m)
+
+
+def _reflect_pad(v: torch.Tensor, dim: int, p: int) -> torch.Tensor:
+    idx = torch.as_tensor(reflect_indices(v.shape[dim], p), device=v.device)
+    return v.index_select(dim, idx)
+
+
 def gaussian_blur(x: torch.Tensor, ksize: int, sigma: float) -> torch.Tensor:
     """Separable Gaussian blur of NHWC ``x`` (N, H, W, C) with reflect-101
-    padding (cv2 BORDER_DEFAULT). ``F.pad``'s reflect mode reflects at most
-    size - 1 pixels, so H and W must exceed ksize // 2; smaller images
-    raise (``jnp.pad`` reflects any amount, which the port does not copy)."""
-    n, h, w, c = x.shape
+    padding (cv2 BORDER_DEFAULT), for any H and W: an axis shorter than the
+    pad reflects again, as ``jnp.pad`` does."""
+    c = x.shape[-1]
     p = ksize // 2
-    if min(h, w) <= p:
-        raise ValueError(
-            f"gaussian_blur: a {ksize}-tap reflect-101 blur needs H and W "
-            f"above {p}, got {h}×{w}")
     k = torch.as_tensor(gaussian_kernel_1d(ksize, sigma), dtype=x.dtype,
                         device=x.device)
     v = x.permute(0, 3, 1, 2)
-    v = F.conv2d(F.pad(v, (0, 0, p, p), mode="reflect"),
+    v = F.conv2d(_reflect_pad(v, 2, p),
                  k.view(1, 1, ksize, 1).expand(c, 1, ksize, 1), groups=c)
-    v = F.conv2d(F.pad(v, (p, p, 0, 0), mode="reflect"),
+    v = F.conv2d(_reflect_pad(v, 3, p),
                  k.view(1, 1, 1, ksize).expand(c, 1, 1, ksize), groups=c)
     return v.permute(0, 2, 3, 1)

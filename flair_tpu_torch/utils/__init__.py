@@ -1,1 +1,2 @@
-"""Weight conversion, device selection, CUDA kernel builds."""
+"""Weight conversion and checkpoint loading, configs, PNG I/O, device
+selection, CUDA kernel builds."""

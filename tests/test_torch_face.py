@@ -1,6 +1,7 @@
 """The port's face fusion against flair_tpu, in float32.
 
-- ``gaussian_blur`` (C = 1 and 4 at 64², ≤1e-6) and its size guard;
+- ``gaussian_blur`` (C = 1 and 4 at 64², ≤1e-6), and at sizes the
+  101-tap pad reflects more than once (1², 7², 32×48, 50×64; ≤1e-6);
 - ``warp_affine`` (bicubic and bilinear, C = 3 and 4; identity, the
   bench's matrix, a 20° rotation and a matrix that maps half the output
   off the image; 64² → 64² and → 48×80; ≤1e-5, borders and corners
@@ -53,9 +54,15 @@ def test_gaussian_blur(c):
         np.testing.assert_allclose(out, ref, atol=1e-6)
 
 
-def test_gaussian_blur_rejects_small_images():
-    with pytest.raises(ValueError, match="above 50"):
-        t_blur(torch.zeros(1, 50, 64, 1), 101, 26.0)
+@pytest.mark.parametrize("hw", [(1, 1), (7, 7), (32, 48), (50, 64),
+                                (64, 64)])
+def test_gaussian_blur_small_images(hw):
+    """Images at or below the 101-tap kernel's reach blur as ``jnp.pad``'s
+    reflect pads them (50 rows: the largest the port once refused)."""
+    x = uniform(2, 2, *hw, 4)
+    out = t_blur(torch.from_numpy(x), 101, 26.0).numpy()
+    ref = np.asarray(j_blur(jnp.asarray(x), 101, 26.0))
+    np.testing.assert_allclose(out, ref, atol=1e-6)
 
 
 @pytest.mark.parametrize("c", [3, 4])

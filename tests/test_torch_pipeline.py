@@ -6,7 +6,8 @@ windows (the tail window padded, the overlap pinned), and agree to ≥45 dB
 PSNR in float32 with the face prior off, and to ≥40 dB (the goldens' bar)
 with it on: tiny CodeFormer / ParseNet carried across from flax, a stub
 face helper with fixed matrices, VSR++ background weights. A subprocess
-checks that the port imports neither JAX nor the JAX package. JAX is
+checks that the port (its CLI included) and ``chip_smoke.py`` import
+neither JAX, the JAX package, cv2 nor PIL. JAX is
 imported inside the parity tests, so the ``cuda`` cases run on a machine
 without it (``python -m pytest -m cuda tests/test_torch_pipeline.py``).
 """
@@ -194,8 +195,13 @@ def test_port_imports_neither_jax_nor_flair_tpu():
         "import flair_tpu_torch.pipeline.video\n"
         "import flair_tpu_torch.pipeline.wrappers\n"
         "import flair_tpu_torch.utils.convert\n"
+        "import flair_tpu_torch.cli, flair_tpu_torch.models.retinaface\n"
+        "import flair_tpu_torch.models.resnet, flair_tpu_torch.utils.png\n"
+        "import flair_tpu_torch.utils.checkpoint\n"
+        "import flair_tpu_torch.utils.config, flair_tpu_torch.face.align\n"
+        "import flair_tpu_torch.face.misc\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'flair_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'flair_tpu', 'cv2', 'PIL'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -208,7 +214,7 @@ def test_chip_smoke_imports_neither_jax_nor_flair_tpu():
         "import sys\n"
         "import chip_smoke\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'flair_tpu'))\n"
+        "('jax', 'jaxlib', 'flax', 'flair_tpu', 'cv2', 'PIL'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
@@ -433,3 +439,25 @@ def test_cuda_face_fn_matches_cpu(cuda_device, aligned):
     torch.backends.cudnn.allow_tf32 = True
     assert torch.isfinite(outs[1]).all()
     assert psnr(outs[0].numpy() / 2, outs[1].numpy() / 2) >= 50.0
+
+
+@pytest.mark.cuda
+def test_cuda_cli_x8_runs(cuda_device, tmp_path):
+    """``python -m flair_tpu_torch.cli x8_bicubic`` on the card: a 3-frame
+    clip at the task's 64² input (the x8 operator maps 512² to 64²),
+    seeded random full-width weights, the face stack on (the random
+    RetinaFace runs on every frame), two DDIM steps."""
+    from flair_tpu_torch import cli
+    from flair_tpu_torch.utils.png import read_png, write_png
+
+    clip = tmp_path / "clip"
+    clip.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        write_png(str(clip / f"{i:04d}.png"),
+                  rng.integers(0, 256, (64, 64, 3)).astype(np.uint8))
+    out = tmp_path / "out"
+    assert cli.main(["x8_bicubic", "--input-dir", str(clip), "--output-dir",
+                     str(out), "--sampler", "ddim", "--steps", "2"]) == 0
+    frames = [read_png(str(out / f"{i:04d}.png")) for i in range(3)]
+    assert all(f.shape == (512, 512, 3) for f in frames)
