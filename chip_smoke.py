@@ -15,17 +15,33 @@ Phases, one JSON line each (a record per shape for the kernels):
                max residue magnitude 5 (x8 path) and 10 (gaussian path),
                timed; then correctness-only rows (DCN_EDGE): ragged pixel
                counts, B = 2, raw blocks as views and as separate tensors,
-               flows past every border, every Cout, Cin/G of 8 to 32
+               flows past every border, every Cout, Cin/G of 8 to 32;
+               then gradient rows (the autograd Function: kernel forward,
+               plain float32 backward, against the plain version's own
+               autograd on float32 copies, all eight inputs, backward
+               timed) at both main-path shapes in bf16, M = 5, and one f32
   kernel_flash csrc/flash_attn.cu vs ops/attention.dot_product_attention at
                the BlurUNet's three attention shapes (bf16) and one f32 row,
                timed beside SDPA (and the kernel SDPA ran, from the
                profiler); then correctness-only rows at ragged S on both
-               sides of each query-tile switch and at D = 32, V a ramp
+               sides of each query-tile switch and at D = 32, V a ramp;
+               then gradient rows at S = 256 (bf16, f32)
   slice_small  the x8 test configuration on cuda (kernel) vs cpu (plain)
   slice_small_blur  the gaussian and jpeg test configurations (goldens'
                widths, 32-channel heads) on cuda (both kernels) vs cpu
   slice_small_face  slice_small with the face prior on: small seeded
                CodeFormer / ParseNet at 64², fixed matrices, cuda vs cpu
+  slice_small_train  one training step (``train.make_train_step``) of the
+               goldens' x8 model, f32, B = 1, T = 3, 64², fixed t and noise,
+               on cuda (K1) vs cpu (plain): loss, grad_norm, every gradient,
+               the updated parameters and the EMA stream
+  train_full   the x8 BicubicUNet at the registry defaults training through
+               ``train.TrainRunner`` (bf16 trunk, float32 parameters, AdamW,
+               one EMA stream), B = 1, T = TRAIN_T at 512²: a warm-up step,
+               TRAIN_STEPS timed steps (K1 launches per step held), the
+               forward / backward split of one more pass by CUDA events,
+               every gradient finite and non-zero; then a save, a new runner
+               that resumes (its state equal to the saved one) and a step
   slice_full   full-width BicubicUNet, 13-frame 64² clip → 512², ddim25
   slice_full_gaussian  full-width BlurUNet, 10-frame 128² clip → 512²,
                gaussian task, ddim25
@@ -75,7 +91,9 @@ import torch
 import torch.nn.functional as F
 
 from flair_tpu_torch import cli
-from flair_tpu_torch.diffusion import GuidanceConfig, make_task_diffusion
+from flair_tpu_torch.diffusion import (
+    GuidanceConfig, get_named_beta_schedule, make_diffusion,
+    make_task_diffusion, training_losses)
 from flair_tpu_torch.face.helper import FaceRestoreHelper, make_face_fn_p
 from flair_tpu_torch.models.adm import BlurUNet
 from flair_tpu_torch.models.codeformer import CodeFormer
@@ -83,6 +101,7 @@ from flair_tpu_torch.models.parsenet import ParseNet
 from flair_tpu_torch.models.registry import get_model
 from flair_tpu_torch.models.retinaface import RetinaFace, RetinaFaceDetector
 from flair_tpu_torch.models.sr3 import BicubicUNet
+from flair_tpu_torch.models.vsrpp import BasicVSRPP
 from flair_tpu_torch.ops.attention import dot_product_attention, flash_attention
 from flair_tpu_torch.ops.dcn import deform_conv2d_raw
 from flair_tpu_torch.ops.deform import deform_conv2d_raw_plain
@@ -91,15 +110,20 @@ from flair_tpu_torch.pipeline.video import (
     TASK_CONFIGS, init_from_degraded, restore_video, rnn_input_for, scale_tau,
     window_slices)
 from flair_tpu_torch.pipeline.wrappers import (
-    wrap_bicubic_model, wrap_blur_model, wrap_codeformer, wrap_parsenet)
+    wrap_bicubic_model, wrap_bicubic_train, wrap_blur_model, wrap_codeformer,
+    wrap_parsenet)
+from flair_tpu_torch.train import (
+    TrainConfig, TrainRunner, create_train_state, make_train_step)
 from flair_tpu_torch.utils import build
+from flair_tpu_torch.utils import logging as train_log
 from flair_tpu_torch.utils.convert import (
     from_flax_bicubic_unet, from_flax_blur_unet)
 from flair_tpu_torch.utils.png import read_png, write_png
 
 ALL_PHASES = ("device", "build", "kernel_dcn", "kernel_flash", "slice_small",
-              "slice_small_blur", "slice_small_face", "slice_full",
-              "slice_full_gaussian", "slice_full_face", "detector", "cli")
+              "slice_small_blur", "slice_small_face", "slice_small_train",
+              "train_full", "slice_full", "slice_full_gaussian",
+              "slice_full_face", "detector", "cli")
 EXTRA_PHASES = ("profile_step",)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MEM_BW = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
@@ -136,6 +160,25 @@ FLASH_TOL = {torch.bfloat16: (1e-2, 2e-2), torch.float32: (1e-5, 1e-5)}
 FLASH_EDGE = (tuple((s, 4, 64) for s in (1, 63, 65, 127, 129, 1000))
               + tuple((s, 4, 32) for s in (50, 200, 1000)))
 SMALL_PSNR_DB = 50.0   # cuda kernel vs cpu plain, f32 end to end
+# gradient rows: (H=W, Cin, Cout, dtype); M = 5, the x8 path's
+DCN_GRAD_ROWS = ((512, 128, 64, torch.bfloat16), (256, 256, 128, torch.bfloat16),
+                 (256, 256, 128, torch.float32))
+FLASH_GRAD_ROWS = ((256, 8, torch.bfloat16), (256, 8, torch.float32))
+# each gradient against the plain version's float32 autograd, relative to
+# its largest entry: f32 to the order of index_add's atomics, bf16 to the one
+# rounding of the float32 gradient to bf16
+GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
+# training, cuda vs cpu and the port vs JAX (tests/test_torch_train.py):
+# each gradient within 1e-4 of max(its largest entry, TRAIN_GRAD_FLOOR of the
+# model's largest) — gradients that are zero in exact arithmetic come out as
+# rounding noise, and those through bilinear sampling at flows near zero move
+# by up to 5e-6 of the largest with a 1e-6 change of the input
+TRAIN_GRAD_FLOOR = 0.2
+TRAIN_LR = 1e-4
+# train_full: frames per clip (T = 5 keeps ~85 GiB of activations for the
+# backward, more than the card holds: PERF.md §6, PR 8) and timed steps
+TRAIN_T = 3
+TRAIN_STEPS = 3
 FULL_STEPS = "ddim25"
 SLEEP_CYCLES_PER_CALL = 400_000   # ~0.2 ms at the H100's SM clock
 DCN_PER_STEP = {"slice_full": 108, "slice_full_gaussian": 180,
@@ -367,6 +410,64 @@ def phase_kernel_dcn(ctx):
                 f"dcn kernel disagrees at {row['shape']} G={g} M={mrm}: "
                 f"abs {err} (tol {DCN_TOL}), rel {rel} (tol {DCN_TOL_REL})")
     ctx["dcn_rows"] = rows
+    ctx["dcn_grad_rows"] = []
+    for i, (h, cin, cout, dtype) in enumerate(DCN_GRAD_ROWS):
+        row = dcn_grad_row(h, cin, cout, dtype, seed=500 + i)
+        row["card"] = ctx["smi"]
+        emit({"phase": "kernel_dcn", **row})
+        ctx["dcn_grad_rows"].append(row)
+        if not max(row["max_rel_err"].values()) <= GRAD_TOL[dtype]:
+            raise AssertionError(f"dcn gradients disagree at {row['shape']} "
+                                 f"{dtype}: {row['max_rel_err']}")
+
+
+def grad_errors(names, grads, ref):
+    """Each gradient's max abs error over the largest |reference| entry."""
+    return {n: ((g.float() - r).abs().max() / r.abs().max()).item()
+            for n, g, r in zip(names, grads, ref)}
+
+
+def dcn_grad_row(h, cin, cout, dtype, seed, mrm=5.0):
+    """The DCN autograd Function at a main-path shape: its gradients (K1
+    forward, plain float32 backward) against the plain version's own
+    autograd on float32 copies of the same inputs, for all eight inputs
+    (the raw blocks views of one tensor, as VSR++ passes them), and the
+    backward's device time. The launches do not count."""
+    x, ry, rx, ml, fy, fx, w, b = dcn_inputs(h, cin, cout, seed,
+                                             torch.device("cuda"))
+    gk = ry.shape[-1]
+    base = [x, torch.cat([ry, rx, ml], dim=-1), fy, fx, w, b]
+    leaves = [t.to(dtype if i < 2 else t.dtype).detach().requires_grad_(True)
+              for i, t in enumerate(base)]
+
+    def run(ls):
+        return deform_conv2d_raw(ls[0], *ls[1].split(gk, dim=-1), *ls[2:],
+                                 mrm)
+
+    saved = deform_conv2d_raw.launches
+    out = run(leaves)
+    deform_conv2d_raw.launches = saved
+    cot = torch.randn(out.shape, generator=torch.Generator("cuda").manual_seed(
+        seed), device="cuda").to(out.dtype)
+    grads = torch.autograd.grad(out, leaves, cot, retain_graph=True)
+    ms = cuda_ms(lambda: torch.autograd.grad(out, leaves, cot,
+                                             retain_graph=True),
+                 reps=3, warmup=1, batches=3)
+    ref_leaves = [t.detach().float().requires_grad_(True) for t in leaves]
+    ref = torch.autograd.grad(
+        deform_conv2d_raw_plain(ref_leaves[0],
+                                *ref_leaves[1].split(gk, dim=-1),
+                                *ref_leaves[2:], mrm),
+        ref_leaves, cot.float())
+    del out
+    names = ("x", "res_y", "res_x", "mask_logits", "flow_y", "flow_x",
+             "weight", "bias")
+    split = lambda gs: [gs[0], *gs[1].split(gk, dim=-1), *gs[2:]]  # noqa: E731
+    errs = grad_errors(names, split(grads), split(ref))
+    return {"shape": f"x(1,{h},{h},{cin})->{cout}", "dtype": str(dtype),
+            "mrm": mrm, "gradient": "K1 forward + plain float32 backward "
+            "vs plain autograd", "max_rel_err": errs,
+            "tol_rel": GRAD_TOL[dtype], "backward_ms": ms}
 
 
 def flash_bound_ms(bh, s, d, dtype):
@@ -478,6 +579,45 @@ def phase_kernel_flash(ctx):
                                  f"(ramp V): abs {err} (tol {tol_abs}), "
                                  f"rel {rel} (tol {tol_rel})")
     ctx["flash_rows"] = rows
+    ctx["flash_grad_rows"] = []
+    for i, (s, heads, dtype) in enumerate(FLASH_GRAD_ROWS):
+        row = flash_grad_row(s, heads, FLASH_D, dtype, seed=600 + i)
+        row["card"] = ctx["smi"]
+        emit({"phase": "kernel_flash", **row})
+        ctx["flash_grad_rows"].append(row)
+        if not max(row["max_rel_err"].values()) <= GRAD_TOL[dtype]:
+            raise AssertionError(f"flash gradients disagree at {row['shape']} "
+                                 f"{dtype}: {row['max_rel_err']}")
+
+
+def flash_grad_row(s, heads, d, dtype, seed):
+    """The flash autograd Function on views of one packed qkv: its q, k, v
+    gradients (K2 forward, plain float32 backward) against the plain
+    twin's own autograd on a float32 copy, and the backward's device
+    time. The launches do not count."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(seed)
+    packed = torch.randn((FLASH_N, s, heads * 3 * d), generator=gen,
+                         device=dev).to(dtype).requires_grad_(True)
+
+    def qkv(t):
+        return t.view(FLASH_N, s, heads, 3, d).unbind(dim=3)
+
+    saved = flash_attention.launches
+    out = flash_attention(*qkv(packed))
+    flash_attention.launches = saved
+    cot = torch.randn(out.shape, generator=gen, device=dev).to(dtype)
+    (g,) = torch.autograd.grad(out, packed, cot, retain_graph=True)
+    ms = cuda_ms(lambda: torch.autograd.grad(out, packed, cot,
+                                             retain_graph=True), reps=20)
+    ref_packed = packed.detach().float().requires_grad_(True)
+    (r,) = torch.autograd.grad(dot_product_attention(*qkv(ref_packed)),
+                               ref_packed, cot.float())
+    errs = grad_errors(("q", "k", "v"), qkv(g), qkv(r))
+    return {"shape": f"qkv({FLASH_N},{s},{heads}x3x{d})", "dtype": str(dtype),
+            "gradient": "K2 forward + plain float32 backward vs plain "
+            "autograd", "max_rel_err": errs, "tol_rel": GRAD_TOL[dtype],
+            "backward_ms": ms}
 
 
 def psnr(a, b):
@@ -677,6 +817,242 @@ def phase_slice_small_face(ctx):
             and rec["dcn_launches"] > 0
             and rec["psnr_db_face_vs_face_off"] < SMALL_PSNR_DB):
         raise AssertionError(f"slice_small_face failed its checks: {rec}")
+
+
+def x8_train_diffusion(device):
+    """The x8 training schedule, as the JAX package trains it
+    (``__graft_entry__.py``): face_bicubic, 2000 steps, unspaced."""
+    return make_diffusion(get_named_beta_schedule("face_bicubic", 2000),
+                          device=device)
+
+
+def dcn_sites(model) -> int:
+    return sum(isinstance(m, BasicVSRPP) for m in model.modules())
+
+
+def small_train_step(device):
+    """One ``make_train_step`` of the goldens' x8 model (f32) on ``device``,
+    B = 1, T = 3, 64², t and noise fixed. Returns (model, state, metrics,
+    K1 launches)."""
+    _, _, flat = golden("x8_s64")
+    model = BicubicUNet(inner_channel=32, norm_groups=16, channel_mults=(1, 2),
+                        attn_res=(32,), vsrpp_res=(64,), image_size=64,
+                        num_frames=3, head_dim=8)
+    model.load_state_dict(from_flax_bicubic_unet(flat))
+    model.to(device)
+    d = x8_train_diffusion(device)
+    cfg = TrainConfig(lr=TRAIN_LR, ema_rates=(0.9999,))
+    state = create_train_state(dict(model.named_parameters()), cfg)
+    rng = np.random.default_rng(2)
+    x0, low = (np.tanh(rng.standard_normal((1, 3, 64, 64, 3)))
+               .astype(np.float32) for _ in range(2))
+    noise = rng.standard_normal((1, 3, 64, 64, 3)).astype(np.float32)
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    saved = deform_conv2d_raw.launches
+    deform_conv2d_raw.launches = 0
+    state, met = make_train_step(d, wrap_bicubic_train(d, model), cfg)(
+        state, {"x_start": dev(x0), "low_res_input": dev(low)},
+        t=dev(np.array([700])), noise=dev(noise))
+    launches = deform_conv2d_raw.launches
+    deform_conv2d_raw.launches = saved
+    return model, state, met, launches
+
+
+def phase_slice_small_train(ctx):
+    """One training step of the goldens' x8 model on cuda (K1 forward,
+    plain float32 DCN backward, cuDNN) against cpu (plain), f32 with TF32
+    off: loss and grad_norm within 1e-5 relative, every gradient within
+    1e-4 of max(its largest entry, TRAIN_GRAD_FLOOR of the model's largest);
+    the updated parameters where |g_cpu| is above that gradient's tolerance
+    (Adam's first update is ±lr there), within 1e-2·lr; the EMA stream
+    within 1e-7."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.time()
+    model, st_g, met_g, launches = small_train_step("cuda")
+    secs = time.time() - t0
+    _, st_c, met_c, _ = small_train_step("cpu")
+    torch.backends.cudnn.allow_tf32 = True
+    g_max = max(g.abs().max().item() for g in met_c["grads"].values())
+    err = {"grad": 0.0, "param": 0.0, "ema": 0.0}
+    live = 0
+    for k, gc in met_c["grads"].items():
+        gg = met_g["grads"][k].cpu()
+        tol = 1e-4 * max(gc.abs().max().item(), TRAIN_GRAD_FLOOR * g_max)
+        err["grad"] = max(err["grad"], (gg - gc).abs().max().item() / tol)
+        mask = gc.abs() > tol
+        live += int(mask.sum())
+        dp = (st_g.params[k].detach().cpu() - st_c.params[k].detach())[mask]
+        if dp.numel():
+            err["param"] = max(err["param"], dp.abs().max().item())
+        err["ema"] = max(err["ema"], (st_g.ema_params[0][k].cpu()
+                                      - st_c.ema_params[0][k]).abs().max()
+                         .item())
+    rel = {k: abs(float(met_g[k]) - float(met_c[k])) / abs(float(met_c[k]))
+           for k in ("loss", "grad_norm")}
+    expect = 2 * 2 * dcn_sites(model)       # 2 branches × (T - 1) frames
+    rec = {"phase": "slice_small_train", "loss": float(met_g["loss"]),
+           "grad_norm": float(met_g["grad_norm"]), "rel_err": rel,
+           "grad_err_over_tol": err["grad"],
+           "param_err": err["param"], "param_tol": 1e-2 * TRAIN_LR,
+           "params_compared": live, "ema_err": err["ema"], "ema_tol": 1e-7,
+           "dcn_launches": launches, "dcn_launches_expected": expect,
+           "seconds_cuda": round(secs, 3)}
+    emit(rec)
+    ctx.setdefault("launches", {})["slice_small_train"] = {
+        "dcn_raw": launches, "flash_attn": 0}
+    if not (max(rel.values()) <= 1e-5 and err["grad"] <= 1.0
+            and err["param"] <= 1e-2 * TRAIN_LR and err["ema"] <= 1e-7
+            and launches == expect):
+        raise AssertionError(f"slice_small_train failed its checks: {rec}")
+
+
+def forward_backward_ms(apply, d, params, batch, gen):
+    """CUDA-event device times of one loss (forward) and of its gradients
+    (backward) for ``batch``, as the training step takes them; nothing is
+    updated."""
+    x = batch["x_start"]
+    b, tw = x.shape[:2]
+    t = torch.randint(0, d.num_timesteps, (b,), generator=gen,
+                      device=x.device)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    with torch.enable_grad():
+        terms = training_losses(
+            d, lambda x_t, t_b: apply(params, x_t, t_b[:, None].expand(b, tw),
+                                      batch), x, t, gen)
+        loss = terms["loss"].mean()
+        ev[1].record()
+        torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    ev[2].record()
+    ev[2].synchronize()
+    return ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])
+
+
+def states_equal(a, b) -> bool:
+    if (a.step, a.opt_state.count) != (b.step, b.opt_state.count):
+        return False
+    pairs = [(a.params, b.params), (a.opt_state.mu, b.opt_state.mu),
+             (a.opt_state.nu, b.opt_state.nu)]
+    pairs += list(zip(a.ema_params, b.ema_params))
+    return all(x.keys() == y.keys()
+               and all(torch.equal(x[k], y[k]) for k in x) for x, y in pairs)
+
+
+def phase_train_full(ctx):
+    """The x8 BicubicUNet at the registry defaults (236.1 M parameters,
+    seeded random weights at 0.02 as ``cli.build_model`` makes them, bf16
+    trunk, float32 parameters) training through ``TrainRunner``: AdamW lr
+    1e-4, one EMA stream (0.9999), the face_bicubic 2000-step schedule;
+    B = 1, T = TRAIN_T, ``low_res_input`` the bicubic ×8 upsample of a 64²
+    clip, ``x_start`` it plus noise at 0.1, 512². Each step's K1 / K2
+    counts are set to 0 just before ``run_step`` and read just after."""
+    dev = torch.device("cuda")
+    held_gib = torch.cuda.memory_allocated() / 2 ** 30
+    model = get_model("bicubic_unet", dtype=torch.bfloat16)
+    model.random_init(seed=0, scale=0.02)
+    d = x8_train_diffusion(dev)
+    cfg = TrainConfig(lr=TRAIN_LR, ema_rates=(0.9999,))
+    apply = wrap_bicubic_train(d, model)
+    gen = torch.Generator(dev).manual_seed(1)
+    clip64 = torch.rand((1, TRAIN_T, 64, 64, 3), generator=gen, device=dev)
+    low = init_from_degraded(clip64, TASK_CONFIGS["x8_bicubic"])
+    x_start = torch.clamp(low + 0.1 * torch.randn(low.shape, generator=gen,
+                                                  device=dev), -1, 1)
+    batch = {"x_start": x_start, "low_res_input": low}
+    expect = {"dcn_raw": 2 * (TRAIN_T - 1) * dcn_sites(model),
+              "flash_attn": 0}
+    rec = {"phase": "train_full", "model": "bicubic_unet (registry defaults)",
+           "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+           "batch": [1, TRAIN_T, 512, 512, 3], "launches_expected": expect}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_log.configure(os.path.join(tmp, "log"), format_strs=["json"])
+        ckpt = os.path.join(tmp, "ckpt")
+        kw = dict(ckpt_dir=ckpt, device=dev, log_interval=10 ** 9,
+                  save_interval=10 ** 9)
+        runner = TrainRunner(d, apply, cfg, model, **kw)
+
+        def step(r):
+            torch.cuda.synchronize()
+            deform_conv2d_raw.launches = flash_attention.launches = 0
+            t0 = time.perf_counter()
+            host = r.run_step(batch)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            return host, ms, {"dcn_raw": deform_conv2d_raw.launches,
+                              "flash_attn": flash_attention.launches}
+
+        step_ms, launches, losses, norms = [], [], [], []
+        for i in range(1 + TRAIN_STEPS):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            host, ms, n = step(runner)
+            step_ms.append(ms)
+            launches.append(n)
+            losses.append(float(host["loss"]))
+            norms.append(float(host["grad_norm"]))
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        grads = host.pop("grads")
+        bad = {k: ("None" if g is None else
+                   "non-finite" if not torch.isfinite(g).all() else
+                   "zero" if not g.abs().max() > 0 else None)
+               for k, g in grads.items()}
+        bad = {k: v for k, v in bad.items() if v is not None}
+        del grads, host
+        saved = deform_conv2d_raw.launches
+        fwd_ms, bwd_ms = forward_backward_ms(apply, d, runner.state.params,
+                                             batch, gen)
+        deform_conv2d_raw.launches = saved     # comparisons do not count
+        t0 = time.perf_counter()
+        path = runner.save()
+        save_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        model2 = copy.deepcopy(model)
+        resumed = TrainRunner(d, wrap_bicubic_train(d, model2), cfg, model2,
+                              **kw)
+        load_s = time.perf_counter() - t0
+        same = (states_equal(resumed.state, runner.state)
+                and torch.equal(resumed.generator.get_state(),
+                                runner.generator.get_state())
+                and resumed.resume_step == runner.step)
+        del runner
+        host, ms, n = step(resumed)
+        rec.update({
+            "step_ms": step_ms[1:], "warmup_ms": step_ms[0],
+            "ms_per_step": float(np.median(step_ms[1:])),
+            "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+            "backward_share": bwd_ms / float(np.median(step_ms[1:])),
+            "update_ms": float(np.median(step_ms[1:])) - fwd_ms - bwd_ms,
+            "launches_per_step": launches, "loss": losses,
+            "grad_norm": norms, "params_without_gradient": bad,
+            "checkpoint": os.path.basename(path), "save_s": save_s,
+            "resume_s": load_s, "resumed_equal": same,
+            "resumed_step": {"ms": ms, "launches": n,
+                             "loss": float(host["loss"]),
+                             "grad_norm": float(host["grad_norm"])},
+            "allocated_before_gib": held_gib, "card": ctx["smi"]})
+    grad_rows = {r["shape"]: r["backward_ms"]
+                 for r in ctx.get("dcn_grad_rows", ())
+                 if r["dtype"] == str(torch.bfloat16)}
+    if len(grad_rows) == 2:
+        # half the sites run at 512², half at 256²
+        per_step = sum(grad_rows.values()) * expect["dcn_raw"] / 2
+        rec["dcn_backward_ms_per_step"] = per_step
+        rec["dcn_backward_share"] = per_step / rec["ms_per_step"]
+    emit(rec)
+    ctx.setdefault("launches", {})["train_full"] = launches[-1]
+    del resumed, model, model2
+    torch.cuda.empty_cache()
+    finite = all(np.isfinite(v) for v in losses + norms
+                 + [rec["resumed_step"]["loss"]])
+    if not (finite and not bad and same
+            and all(n == expect for n in launches)
+            and rec["resumed_step"]["launches"] == expect):
+        raise AssertionError(f"train_full failed its checks: {rec}")
 
 
 def run_full(ctx, name, task, model, make_apply, clip, face=None):
@@ -1075,11 +1451,14 @@ def phase_profile_step(ctx):
             profile_call(ctx, "face_fn", lambda: face_fn(init, x, mats))
 
 
-def kernel_record(name, source, replaces, rows, launches, main_path):
+def kernel_record(name, source, replaces, rows, launches, main_path,
+                  grad_rows=()):
     """One entry of the ``kernels`` line: the numbers of the first shape
     (the main path's costliest), every shape beside them (checked-only
     rows with null times); max_abs_err over all of them; ``launches`` from
-    ``main_path``'s run, every path's in ``launches_by_path``."""
+    ``main_path``'s run, every path's in ``launches_by_path``; the
+    autograd Function's gradient rows (plain float32 backward) in
+    ``backward``."""
     keys = ("shape", "ms", "plain_ms", "library_ms", "library_kernel",
             "bound_ms", "bound_by", "max_abs_err")
     return {"name": name, "route": "cuda", "source": source,
@@ -1091,7 +1470,10 @@ def kernel_record(name, source, replaces, rows, launches, main_path):
             "library_ms": rows[0].get("library_ms"),
             "shapes": [{k: r.get(k) for k in keys} | {"mrm": r.get("mrm"),
                                                       "dtype": r.get("dtype")}
-                       for r in rows]}
+                       for r in rows],
+            "backward": [{k: r[k] for k in ("shape", "dtype", "backward_ms",
+                                            "max_rel_err")}
+                         for r in grad_rows]}
 
 
 def main() -> int:
@@ -1115,12 +1497,12 @@ def main() -> int:
         kernels.append(kernel_record(
             "dcn_raw", "flair_tpu_torch/csrc/dcn_raw.cu",
             "flair_tpu/ops/dcn_pallas.py:50", ctx["dcn_rows"],
-            launches["dcn_raw"], "cli_x8"))
+            launches["dcn_raw"], "cli_x8", ctx["dcn_grad_rows"]))
     if "kernel_flash" in phases:
         kernels.append(kernel_record(
             "flash_attn", "flair_tpu_torch/csrc/flash_attn.cu",
             "flair_tpu/ops/attention.py:53", ctx["flash_rows"],
-            launches["flash_attn"], "cli_jpeg"))
+            launches["flash_attn"], "cli_jpeg", ctx["flash_grad_rows"]))
     if kernels:
         emit({"kernels": kernels})
     print(ctx["smi"], flush=True)

@@ -4,7 +4,8 @@ Same sub-package layout and module names as ``flair_tpu`` so every module
 has an obvious counterpart:
 
 - ``flair_tpu_torch.ops``        — primitives (embeddings, norms, resizes,
-                                   warps, blur, DCT/JPEG), and the deformable conv
+                                   warps, blur, DCT/JPEG, EMA, patch
+                                   tiling), and the deformable conv
                                    and flash attention, whose CUDA kernels
                                    live in ``csrc/``.
 - ``flair_tpu_torch.operators``  — degradation operators (x8/x16 SVD SRConv,
@@ -15,11 +16,15 @@ has an obvious counterpart:
 - ``flair_tpu_torch.face``       — face prior: host alignment geometry,
                                    on-device crop / mask / paste, 5-point
                                    alignment, facelib helpers.
-- ``flair_tpu_torch.diffusion``  — schedules, respacing, guided sampler.
+- ``flair_tpu_torch.diffusion``  — schedules, respacing, guided sampler,
+                                   training losses, timestep samplers.
+- ``flair_tpu_torch.train``      — the training step (AdamW by optax's
+                                   rules, EMA streams) and the host loop
+                                   with save / resume.
 - ``flair_tpu_torch.pipeline``   — windowed video restoration driver.
 - ``flair_tpu_torch.utils``      — weight conversion (flax and upstream
-                                   torch names), checkpoint loading, configs,
-                                   PNG I/O, devices, kernel builds.
+                                   torch names), checkpoints, configs,
+                                   logging, PNG I/O, devices, kernel builds.
 - ``flair_tpu_torch.cli``        — the entry point: ``python -m
                                    flair_tpu_torch.cli <task> ...``.
 

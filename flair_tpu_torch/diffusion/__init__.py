@@ -1,4 +1,5 @@
-"""Diffusion engine: schedules, respacing, guided sampler."""
+"""Diffusion engine: schedules, respacing, guided sampler, training losses,
+timestep samplers."""
 
 from .schedules import (
     LossType,
@@ -18,6 +19,8 @@ from .gaussian import (
     p_mean_variance,
     predict_eps_from_xstart,
     predict_xstart_from_eps,
+    q_mean_variance,
+    q_posterior_mean_variance,
     q_sample,
     scale_timesteps,
     sr3_noise_level,
@@ -30,4 +33,20 @@ from .sampler import (
     guided_sample_steps,
     make_guided_update,
     p_sample,
+)
+from .losses import (
+    approx_standard_normal_cdf,
+    discretized_gaussian_log_likelihood,
+    mean_flat,
+    normal_kl,
+    prior_bpd,
+    training_losses,
+    vb_terms_bpd,
+)
+from .resample import (
+    LossAwareState,
+    loss_aware_sample,
+    loss_aware_weights,
+    uniform_sample,
+    update_with_losses,
 )

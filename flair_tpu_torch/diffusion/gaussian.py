@@ -148,6 +148,15 @@ def extract(arr: torch.Tensor, t, ndim: int) -> torch.Tensor:
     return out.reshape(out.shape + (1,) * (ndim - out.dim()))
 
 
+def q_mean_variance(d: Diffusion, x_start, t):
+    """q(x_t | x_0) moments (gaussian_diffusion.py:189-204)."""
+    nd = x_start.dim()
+    mean = extract(d.sqrt_alphas_cumprod, t, nd) * x_start
+    variance = extract(1.0 - d.alphas_cumprod, t, nd)
+    log_variance = extract(d.log_one_minus_alphas_cumprod, t, nd)
+    return mean, variance, log_variance
+
+
 def q_sample(d: Diffusion, x_start, t, noise):
     """Sample q(x_t | x_0) (gaussian_diffusion.py:206-224)."""
     nd = x_start.dim()

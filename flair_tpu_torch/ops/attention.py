@@ -8,7 +8,11 @@ Counterpart of ``flair_tpu/ops/attention.py``:
   launches the kernel or raises, at every sequence length (the JAX package
   took the einsum path where S did not tile by 256, a TPU tiling limit).
   ``flash_attention.launches`` counts kernel launches (a plain int that
-  callers reset to 0 and read).
+  callers reset to 0 and read). It is a ``torch.autograd.Function``: the
+  JAX package has no backward kernel (``jax.grad`` follows
+  ``dot_product_attention`` off the TPU), so the backward recomputes
+  ``dot_product_attention`` in float32 and takes its VJP, each gradient
+  cast to its input's dtype; only the forward launches the kernel.
 - Temporal window attention never materialises the reference's 7x
   ``unfold``: Q/K/V are projected per frame, the per-window-position key
   embedding is added in projected space, and each centre frame attends to
@@ -67,29 +71,9 @@ def _check(q, k, v, scale):
         raise ValueError("flash_attention: the kernel takes a positive scale")
 
 
-def flash_attention(q, k, v, scale: float | None = None):
-    """softmax(q·kᵀ·scale)·v over (B, S, H, D) tensors (flash-attn layout),
-    scale 1/√D by default, float32 softmax and accumulation; output
-    (B, S, H, D) contiguous in q's dtype.
-
-    q, k, v may be strided views of one packed tensor (the per-head
-    interleave ``qkv.reshape(N, S, heads, 3, D)[..., i, :]``): they must
-    share shape, dtype, device and strides, with a unit stride on D."""
-    if not (q.shape == k.shape == v.shape and q.dim() == 4):
-        raise ValueError("flash_attention: q, k, v must share one "
-                         "(B, S, H, D) shape")
-    if not (q.dtype == k.dtype == v.dtype and q.device == k.device == v.device):
-        raise ValueError("flash_attention: q, k, v must share dtype and device")
-    if not (q.stride() == k.stride() == v.stride() and q.stride(3) == 1):
-        raise ValueError("flash_attention: q, k, v must share strides with "
-                         "a unit stride on the head dim")
-    if q.device.type == "cpu":
-        return dot_product_attention(q, k, v, scale)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention: no kernel for {q.device}")
+def _launch(q, k, v, scale: float):
+    """One launch of the kernel on checked CUDA tensors."""
     b, s, h, d = q.shape
-    scale = (1.0 / math.sqrt(d)) if scale is None else scale
-    _check(q, k, v, scale)
     out = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
     lib = build.load(KERNEL, _SIGNATURES)
     sb, ss, sh, _ = q.stride()
@@ -105,6 +89,55 @@ def flash_attention(q, k, v, scale: float | None = None):
         raise RuntimeError(f"flash_attn kernel launch failed ({rc}): {msg}")
     flash_attention.launches += 1
     return out
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The kernel (or the plain twin on the CPU) forward; the plain twin's
+    float32 VJP backward."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        if q.device.type == "cpu":
+            return dot_product_attention(q, k, v, scale)
+        if q.device.type != "cuda":
+            raise ValueError(f"flash_attention: no kernel for {q.device}")
+        scale = (1.0 / math.sqrt(q.shape[-1])) if scale is None else scale
+        _check(q, k, v, scale)
+        return _launch(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            leaves = [t.detach().float().requires_grad_(n)
+                      for t, n in zip(saved, need)]
+            out = dot_product_attention(*leaves, ctx.scale)
+            wrt = [t for t, n in zip(leaves, need) if n]
+            grads = iter(torch.autograd.grad(out, wrt, grad_out.float()))
+        return (*(next(grads).to(t.dtype) if n else None
+                  for t, n in zip(saved, need)), None)
+
+
+def flash_attention(q, k, v, scale: float | None = None):
+    """softmax(q·kᵀ·scale)·v over (B, S, H, D) tensors (flash-attn layout),
+    scale 1/√D by default, float32 softmax and accumulation; output
+    (B, S, H, D) contiguous in q's dtype; differentiable in q, k and v.
+
+    q, k, v may be strided views of one packed tensor (the per-head
+    interleave ``qkv.reshape(N, S, heads, 3, D)[..., i, :]``): they must
+    share shape, dtype, device and strides, with a unit stride on D."""
+    if not (q.shape == k.shape == v.shape and q.dim() == 4):
+        raise ValueError("flash_attention: q, k, v must share one "
+                         "(B, S, H, D) shape")
+    if not (q.dtype == k.dtype == v.dtype and q.device == k.device == v.device):
+        raise ValueError("flash_attention: q, k, v must share dtype and device")
+    if not (q.stride() == k.stride() == v.stride() and q.stride(3) == 1):
+        raise ValueError("flash_attention: q, k, v must share strides with "
+                         "a unit stride on the head dim")
+    return _FlashAttention.apply(q, k, v, scale)
 
 
 flash_attention.launches = 0

@@ -11,6 +11,15 @@ with the raw offset prep fused in (``off = mrm·tanh(res) + flow_half``,
 - A CUDA tensor launches the kernel or raises; nothing falls back.
 - ``deform_conv2d_raw.launches`` counts kernel launches (a plain int that
   callers reset to 0 and read).
+- It is a ``torch.autograd.Function``, the counterpart of the JAX
+  ``custom_vjp`` (``_tile_raw_ad_bwd``): the forward is the kernel (or the
+  plain version on the CPU), the backward recomputes the plain raw prep
+  and exact DCN (``materialize_raw`` + ``modulated_deform_conv2d``) and
+  takes their VJP for all eight tensor inputs. Only the forward launches
+  the kernel. The backward runs in float32 whatever the inputs' dtype and
+  casts each gradient to its input's dtype: the x gradient sums up to 9·G
+  bilinear contributions a pixel through ``index_add``, and a bf16 sum of
+  them would lose digits the JAX backward keeps.
 """
 
 from __future__ import annotations
@@ -83,23 +92,9 @@ def _check(x, res_y, res_x, mask_logits, flow_y, flow_x, weight, bias):
     return g, a, s[2]
 
 
-def deform_conv2d_raw(x, res_y, res_x, mask_logits, flow_y, flow_x, weight,
-                      bias, mrm: float):
-    """Flow-anchored modulated DCN with fused raw prep.
-
-    x (B, H, W, Cin) = cat(prop_n1, prop_n2), NHWC contiguous; res_y, res_x,
-    mask_logits (B, H, W, G·9) pre-activation blocks in (group, tap) order,
-    x's dtype (views of one NHWC tensor are fine: they share a pixel
-    stride); flow_y, flow_x (B, H, W, A) float32 per-anchor flow planes;
-    weight (Cout, Cin, 3, 3); bias (Cout,) or None; mrm the max residue
-    magnitude. Returns (B, H, W, Cout) in x.dtype."""
-    g, a, raw_stride = _check(x, res_y, res_x, mask_logits, flow_y, flow_x,
-                              weight, bias)
-    if x.device.type == "cpu":
-        return deform_conv2d_raw_plain(x, res_y, res_x, mask_logits, flow_y,
-                                       flow_x, weight, bias, mrm)
-    if x.device.type != "cuda":
-        raise ValueError(f"deform_conv2d_raw: no kernel for {x.device}")
+def _launch(x, res_y, res_x, mask_logits, flow_y, flow_x, weight, bias,
+            mrm: float, g: int, a: int, raw_stride: int):
+    """One launch of the kernel on checked CUDA tensors."""
     b, h, w, cin = x.shape
     cout = weight.shape[0]
     # (Cout, Cin, 3, 3) -> (9, Cin, Cout) in x.dtype: one cast-and-copy launch
@@ -122,6 +117,57 @@ def deform_conv2d_raw(x, res_y, res_x, mask_logits, flow_y, flow_x, weight,
         raise RuntimeError(f"dcn_raw kernel launch failed ({rc}): {msg}")
     deform_conv2d_raw.launches += 1
     return out
+
+
+class _DeformConvRaw(torch.autograd.Function):
+    """The kernel (or the plain version on the CPU) forward; the plain
+    version's float32 VJP backward."""
+
+    @staticmethod
+    def forward(ctx, x, res_y, res_x, mask_logits, flow_y, flow_x, weight,
+                bias, mrm):
+        g, a, raw_stride = _check(x, res_y, res_x, mask_logits, flow_y,
+                                  flow_x, weight, bias)
+        # the raw blocks stay the views they came as: saved, not copied
+        ctx.save_for_backward(x, res_y, res_x, mask_logits, flow_y, flow_x,
+                              weight, bias)
+        ctx.mrm = mrm
+        if x.device.type == "cpu":
+            return deform_conv2d_raw_plain(x, res_y, res_x, mask_logits,
+                                           flow_y, flow_x, weight, bias, mrm)
+        if x.device.type != "cuda":
+            raise ValueError(f"deform_conv2d_raw: no kernel for {x.device}")
+        return _launch(x, res_y, res_x, mask_logits, flow_y, flow_x, weight,
+                       bias, mrm, g, a, raw_stride)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        saved = ctx.saved_tensors
+        need = ctx.needs_input_grad[:len(saved)]
+        with torch.enable_grad():
+            leaves = [None if t is None else
+                      t.detach().float().requires_grad_(n)
+                      for t, n in zip(saved, need)]
+            out = deform_conv2d_raw_plain(*leaves, ctx.mrm)
+            wrt = [v for v, n in zip(leaves, need) if n]
+            grads = iter(torch.autograd.grad(out, wrt, grad_out.float()))
+        return (*(next(grads).to(t.dtype) if n else None
+                  for t, n in zip(saved, need)), None)
+
+
+def deform_conv2d_raw(x, res_y, res_x, mask_logits, flow_y, flow_x, weight,
+                      bias, mrm: float):
+    """Flow-anchored modulated DCN with fused raw prep, differentiable in
+    every tensor argument.
+
+    x (B, H, W, Cin) = cat(prop_n1, prop_n2), NHWC contiguous; res_y, res_x,
+    mask_logits (B, H, W, G·9) pre-activation blocks in (group, tap) order,
+    x's dtype (views of one NHWC tensor are fine: they share a pixel
+    stride); flow_y, flow_x (B, H, W, A) float32 per-anchor flow planes;
+    weight (Cout, Cin, 3, 3); bias (Cout,) or None; mrm the max residue
+    magnitude. Returns (B, H, W, Cout) in x.dtype."""
+    return _DeformConvRaw.apply(x, res_y, res_x, mask_logits, flow_y, flow_x,
+                                weight, bias, float(mrm))
 
 
 deform_conv2d_raw.launches = 0

@@ -46,6 +46,24 @@ def wrap_bicubic_model(d: Diffusion, model, *, enable_cross_frames: bool = True)
     return _wrap(model, cond, enable_cross_frames)
 
 
+def wrap_bicubic_train(d: Diffusion, model):
+    """``apply_fn(params, x_t, ts, batch) → eps`` for training a BicubicUNet
+    with ``train.make_train_step``, as the JAX package trains it
+    (``__graft_entry__.py:168-174``): the noise level
+    ``sr3_noise_level(d, t)`` of each frame's t, ``batch["low_res_input"]``
+    as the conditioning and as SPyNet's input. ``params`` (name → tensor)
+    stand in for the model's own, as ``model.apply(params, ...)`` does."""
+
+    def apply(params, x_t, ts, batch):
+        lvl = sr3_noise_level(d, ts.reshape(-1)).reshape(ts.shape)
+        low = batch["low_res_input"]
+        return torch.func.functional_call(model, params, (x_t, lvl, low),
+                                          {"rnn_input": low})
+
+    apply.model = model
+    return apply
+
+
 def wrap_blur_model(d: Diffusion, model, *, enable_cross_frames: bool = True):
     """``apply(x, t, low_res, rnn_input, vsrpp_weights, flows=None) →
     (eps, variance fraction)`` (B, T, H, W, 6) for a BlurUNet."""

@@ -1,2 +1,2 @@
-"""Weight conversion and checkpoint loading, configs, PNG I/O, device
-selection, CUDA kernel builds."""
+"""Weight conversion, checkpoint loading and saving, configs, the training
+logger, PNG I/O, device selection, CUDA kernel builds."""

@@ -11,12 +11,17 @@ Counterpart of the load side of ``flair_tpu/utils/checkpoint.py``:
 - an orbax directory cannot be read without JAX: it raises, and says how
   to write the ``.npz`` instead.
 
-The save side (orbax, training) is not in the port.
+The save side: ``save_pytree`` / ``load_pytree`` write and read a
+directory of ``.npz`` files, one for each top-level entry of a two-level
+dict of arrays (the training runner's ``state_{step:06d}``: the model and
+each EMA stream under flat flax names, which ``load_params`` reads, and the
+optimizer state). The port writes no orbax.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 from typing import Callable, Mapping, Optional
 
 import numpy as np
@@ -53,6 +58,34 @@ def load_params(path: str, model_name: str) -> dict:
             "**flatten_params(params))) and load that")
     raise ValueError(f"unknown checkpoint format: {path} "
                      "(expected .npz, .pt or .pth)")
+
+
+def save_pytree(path: str, tree: Mapping[str, Mapping[str, object]]) -> None:
+    """Write ``tree`` ({file: {key: array}}) as ``<path>/<file>.npz``, one
+    file per top-level entry; arrays may be numpy or torch (read back as
+    numpy). The directory is written beside ``path`` and renamed into
+    place, replacing an older one, so a reader never sees half of it."""
+    path = os.path.abspath(path)
+    tmp = f"{path}.tmp{os.getpid()}"
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    for name, leaves in tree.items():
+        arrays = {k: (v.detach().cpu().numpy() if hasattr(v, "detach")
+                      else np.asarray(v)) for k, v in leaves.items()}
+        np.savez(os.path.join(tmp, f"{name}.npz"), **arrays)
+    if os.path.isdir(path):
+        shutil.rmtree(path)
+    os.replace(tmp, path)
+
+
+def load_pytree(path: str) -> dict:
+    """``{file: {key: numpy array}}`` from a ``save_pytree`` directory."""
+    tree = {}
+    for fname in sorted(os.listdir(path)):
+        if fname.endswith(".npz"):
+            with np.load(os.path.join(path, fname), allow_pickle=False) as f:
+                tree[fname[:-4]] = dict(f)
+    return tree
 
 
 def flatten_params(tree, sep: str = "/") -> dict[str, np.ndarray]:

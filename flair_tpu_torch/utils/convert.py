@@ -78,6 +78,59 @@ def from_flax(flat: Mapping[str, np.ndarray]) -> dict:
     return out
 
 
+# the flax models make these convs bare (``nn.Conv``, no ``Conv_0`` scope):
+# every conv inside BasicVSR++ and SPyNet, and the temporal attention's
+# output projection
+_BARE_CONV_OWNERS = ("BasicVSRPP", "SPyNet")
+_INVERSE_PERM = {2: (1, 0), 4: (2, 3, 1, 0), 5: (2, 3, 4, 1, 0)}
+
+
+def flax_names(model: torch.nn.Module) -> dict:
+    """``{parameter name: flat flax name}`` of a model whose flax leaves are
+    plain convs, dense layers, norms and raw parameters — the BicubicUNet
+    and the BlurUNet — so that ``from_flax(to_flax(state, names))`` gives
+    ``state`` back and the flax names are the JAX model's own."""
+    mods = dict(model.named_modules())
+    bare = set()
+    for name, mod in mods.items():
+        kind = type(mod).__name__
+        if kind in _BARE_CONV_OWNERS:
+            bare.update(n for n in mods if n.startswith(name + "."))
+        elif kind == "TemporalAttention":
+            bare.add(f"{name}.proj" if name else "proj")
+    names = {}
+    for mod_name, mod in mods.items():
+        kind = type(mod).__name__
+        path = ["params"] + (mod_name.split(".") if mod_name else [])
+        for pname, _ in mod.named_parameters(recurse=False):
+            leaf = pname
+            scope = path
+            if kind in ("Conv2d", "Conv3d", "Dense"):
+                leaf = "kernel" if pname == "weight" else pname
+                if mod_name not in bare:
+                    scope = path + [("Dense" if kind == "Dense" else "Conv")
+                                    + "_0"]
+            elif kind in ("GroupNorm32", "ShiftWindowGroupNorm"):
+                leaf = "scale" if pname == "weight" else pname
+            full = f"{mod_name}.{pname}" if mod_name else pname
+            names[full] = "/".join(scope + [leaf])
+    return names
+
+
+def to_flax(state: Mapping[str, torch.Tensor], names: Mapping[str, str]) -> dict:
+    """The port's tensors (a state dict, or any stream keyed like one) →
+    flat flax float32 arrays under ``names`` (``flax_names``), in flax
+    layouts: the inverse of ``from_flax``."""
+    flat = {}
+    for key, val in state.items():
+        arr = val.detach().float().cpu().numpy()
+        j = names[key]
+        if j.rsplit("/", 1)[-1] in ("kernel", "weight") and arr.ndim >= 2:
+            arr = np.transpose(arr, _INVERSE_PERM[arr.ndim])
+        flat[j] = np.ascontiguousarray(arr)
+    return flat
+
+
 def from_flax_bicubic_unet(flat: Mapping[str, np.ndarray]) -> dict:
     """Flat flax BicubicUNet params → ``BicubicUNet`` state_dict."""
     return from_flax(flat)

@@ -138,3 +138,53 @@ def test_cuda_kernel_rejects_nonpositive_scale(cuda_device):
     with pytest.raises(ValueError):
         flash_attention(q, k, v, scale=-0.1)
     assert flash_attention.launches == before
+
+
+@pytest.mark.parametrize("n,s,heads,d,scale", [
+    (2, 64, 2, 32, None), (1, 100, 1, 64, None), (3, 37, 4, 8, 0.05)])
+def test_flash_attention_backward_matches_jax_vjp(n, s, heads, d, scale):
+    """The autograd Function's backward (the plain twin's float32 VJP)
+    against ``jax.vjp`` of ``flair_tpu.ops.attention.dot_product_attention``
+    on the same q, k, v (views of one packed qkv, so the three gradients
+    land in it) and cotangent; f32, within 1e-5 absolute."""
+    import jax
+    import jax.numpy as jnp
+    from flair_tpu.ops import attention as ja
+
+    qkv = packed_qkv(s + d, n, s, heads, d)
+    cot = np.random.default_rng(s).standard_normal(
+        (n, s, heads, d)).astype(np.float32)
+    packed = torch.from_numpy(qkv).requires_grad_(True)
+    out = flash_attention(*split(packed, heads, d), scale=scale)
+    (g_packed,) = torch.autograd.grad(out, packed, torch.from_numpy(cot))
+    jq, jk, jv = (jnp.asarray(qkv.reshape(n, s, heads, 3, d)[..., i, :])
+                  for i in range(3))
+    _, vjp = jax.vjp(lambda a, b, c: ja.dot_product_attention(a, b, c, scale),
+                     jq, jk, jv)
+    ref = np.stack([np.asarray(g) for g in vjp(jnp.asarray(cot))], axis=3)
+    np.testing.assert_allclose(
+        g_packed.numpy().reshape(n, s, heads, 3, d), ref, atol=ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_matches_plain_autograd(cuda_device, dtype):
+    """On the card at S = 256 (the BlurUNet's middle attention shape): the
+    Function's gradients (kernel forward, plain float32 backward) against
+    the plain twin's autograd on float32 copies, through one packed qkv;
+    f32 within 1e-5 and bf16 within 1e-2 of the largest entry. The backward
+    launches nothing."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    qkv = torch.from_numpy(packed_qkv(8, 10, 256, 8, 64)).to(cuda_device, dtype)
+    packed = qkv.clone().requires_grad_(True)
+    before = flash_attention.launches
+    out = flash_attention(*split(packed, 8, 64))
+    cot = torch.randn(out.shape, device=cuda_device, dtype=out.dtype)
+    (g,) = torch.autograd.grad(out, packed, cot)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    ref_packed = qkv.float().requires_grad_(True)
+    ref_out = dot_product_attention(*split(ref_packed, 8, 64))
+    (r,) = torch.autograd.grad(ref_out, ref_packed, cot.float())
+    err = (g.float() - r).abs().max().item() / r.abs().max().item()
+    assert err < (1e-5 if dtype == torch.float32 else 1e-2), err

@@ -202,3 +202,134 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(fault):
         fy = fy.double()
     with pytest.raises((ValueError, TypeError)):
         deform_conv2d_raw(x, ry, rx, ml, fy, fx, wgt, bias, MRM)
+
+
+ARG_NAMES = ("x", "res_y", "res_x", "mask_logits", "flow_y", "flow_x",
+             "weight", "bias")
+
+
+def port_vjp(arrs, cot, mrm, raw_views=False):
+    """Gradients of every tensor argument of ``deform_conv2d_raw`` (the
+    autograd Function) for cotangent ``cot``, weight grad as HWIO. With
+    ``raw_views`` the raw blocks are views of one NHWC tensor, as VSR++
+    passes them, and their gradients arrive through it."""
+    args = [t.clone().requires_grad_(True) for t in to_torch_args(arrs)]
+    call = list(args)
+    if raw_views:
+        g9 = arrs[1].shape[-1]
+        raw = torch.cat(args[1:4], dim=-1).detach().requires_grad_(True)
+        call[1:4] = raw.split(g9, dim=-1)
+    out = deform_conv2d_raw(*call, mrm)
+    wrt = args[:1] + ([raw] if raw_views else args[1:4]) + args[4:]
+    grads = [g.numpy() for g in torch.autograd.grad(
+        out, wrt, torch.from_numpy(cot))]
+    if raw_views:
+        grads[1:2] = np.split(grads[1], 3, axis=-1)
+    grads[6] = np.transpose(grads[6], (2, 3, 1, 0))
+    return grads
+
+
+def assert_grads_close(port, ref, tol):
+    for name, gp, gr in zip(ARG_NAMES, port, ref):
+        gr = np.asarray(gr)
+        assert gp.shape == gr.shape, name
+        err = np.abs(gp - gr).max() / np.abs(gr).max()
+        assert err < tol, (name, err)
+
+
+@pytest.mark.parametrize("b,h,w,cin,raw_views", [
+    (1, 12, 16, 128, False), (2, 10, 12, 128, True), (1, 16, 16, 256, False),
+    (1, 10, 12, 64, True)])
+def test_backward_matches_jax_tile_raw_ad_bwd(b, h, w, cin, raw_views):
+    """The Function's backward against JAX's own custom-VJP backward of the
+    Pallas raw DCN (``_tile_raw_ad_bwd``: the VJP of the patch-gather DCN,
+    plain XLA), called with the residuals and a cotangent, for all eight
+    inputs. M = 5 keeps every residue inside the 16-pixel patch (exact
+    while |residue| ≤ 6), flows of 3 px carry border samples outside the
+    image. f32; each gradient within 1e-5 of its largest entry."""
+    import jax.numpy as jnp
+    from flair_tpu.ops.dcn_pallas import _tile_raw_ad_bwd
+
+    arrs = make_raw_inputs(b * h + cin, b, h, w, cin, cin // 2)
+    cot = np.random.default_rng(cin).standard_normal(
+        (b, h, w, cin // 2)).astype(np.float32)
+    ref = _tile_raw_ad_bwd(MRM, None, (16, 16), None, False, False,
+                           tuple(jnp.asarray(a) for a in arrs),
+                           jnp.asarray(cot))
+    assert_grads_close(port_vjp(arrs, cot, MRM, raw_views), ref, 1e-5)
+
+
+@pytest.mark.parametrize("mrm,amp", [(10.0, 12.0), (10.0, 40.0)])
+def test_backward_matches_jax_exact_vjp_beyond_the_patch(mrm, amp):
+    """Residues of up to 10 px (past the 16-pixel patch's budget) and flows
+    of 12-40 px: the Function's backward against ``jax.vjp`` of the exact
+    ``modulated_deform_conv2d`` on ``_materialize_raw``'s offsets. f32;
+    each gradient within 1e-5 of its largest entry."""
+    import jax
+    import jax.numpy as jnp
+    from flair_tpu.ops.dcn_pallas import _materialize_raw
+    from flair_tpu.ops.deform import modulated_deform_conv2d
+
+    arrs = make_raw_inputs(int(amp), 1, 12, 16, 128, 64, amp=amp,
+                           res_scale=3.0)
+
+    def f(x, ry, rx, ml, fy, fx, wgt, bias):
+        off, m = _materialize_raw(ry, rx, ml, fy, fx, mrm)
+        return modulated_deform_conv2d(x, off, m, wgt, bias, padding=1)
+
+    cot = np.random.default_rng(3).standard_normal((1, 12, 16, 64)).astype(
+        np.float32)
+    _, vjp = jax.vjp(f, *(jnp.asarray(a) for a in arrs))
+    assert_grads_close(port_vjp(arrs, cot, mrm), vjp(jnp.asarray(cot)), 1e-5)
+
+
+def test_backward_runs_in_float32_and_returns_input_dtypes():
+    """bf16 inputs: every gradient comes back in its input's dtype (bf16
+    values, float32 flows, weight and bias), equal to the float32 VJP on
+    the same values rounded once."""
+    x, ry, rx, ml, fy, fx, wgt, bias = to_torch_args(
+        make_raw_inputs(9, 1, 6, 8, 128, 64))
+    bf = [t.to(torch.bfloat16) for t in (x, ry, rx, ml)]
+    args = [t.requires_grad_(True) for t in bf + [fy, fx, wgt, bias]]
+    out = deform_conv2d_raw(*args, MRM)
+    cot = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    grads = torch.autograd.grad(out, args, cot.to(out.dtype))
+    ref_args = [t.detach().float().requires_grad_(True) for t in args]
+    ref = torch.autograd.grad(deform_conv2d_raw_plain(*ref_args, MRM),
+                              ref_args, cot.to(out.dtype).float())
+    for a, g, r in zip(args, grads, ref):
+        assert g.dtype == a.dtype
+        torch.testing.assert_close(g, r.to(a.dtype), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_matches_plain_autograd(cuda_device, dtype):
+    """On the card: the Function (kernel forward, plain float32 backward)
+    against the plain version's own autograd on float32 copies of the same
+    inputs, all eight gradients, raw blocks as views; f32 within 1e-5 and
+    bf16 within 1e-2 (one rounding to bf16) of each largest entry. One
+    launch: the backward does not launch the kernel."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, ry, rx, ml, fy, fx, wgt, bias = (
+        t.to(cuda_device) for t in to_torch_args(
+            make_raw_inputs(21, 1, 40, 72, 128, 64)))
+    raw = torch.cat([ry, rx, ml], dim=-1).to(dtype).requires_grad_(True)
+    leaves = [x.to(dtype).requires_grad_(True), raw] + [
+        t.requires_grad_(True) for t in (fy, fx, wgt, bias)]
+    g9 = ry.shape[-1]
+    before = deform_conv2d_raw.launches
+    out = deform_conv2d_raw(leaves[0], *raw.split(g9, dim=-1), *leaves[2:],
+                            MRM)
+    cot = torch.randn(out.shape, device=cuda_device, dtype=out.dtype)
+    grads = torch.autograd.grad(out, leaves, cot)
+    torch.cuda.synchronize()
+    assert deform_conv2d_raw.launches == before + 1
+    ref_leaves = [t.detach().float().requires_grad_(True) for t in leaves]
+    ref_out = deform_conv2d_raw_plain(
+        ref_leaves[0], *ref_leaves[1].split(g9, dim=-1), *ref_leaves[2:], MRM)
+    ref = torch.autograd.grad(ref_out, ref_leaves, cot.float())
+    for g, r in zip(grads, ref):
+        err = (g.float() - r).abs().max().item() / r.abs().max().item()
+        assert err < (1e-5 if dtype == torch.float32 else 1e-2), err
