@@ -28,20 +28,33 @@ Phases, one JSON line each (a record per shape for the kernels):
                then gradient rows at S = 256 (bf16, f32)
   slice_small  the x8 test configuration on cuda (kernel) vs cpu (plain)
   slice_small_blur  the gaussian and jpeg test configurations (goldens'
-               widths, 32-channel heads) on cuda (both kernels) vs cpu
+               widths, 32-channel heads) on cuda (both kernels) vs cpu;
+               SuperResModel and EncoderUNetModel at the CPU tests' size
+               (tests/test_torch_adm.py), seeded random weights, cuda vs cpu
   slice_small_face  slice_small with the face prior on: small seeded
                CodeFormer / ParseNet at 64², fixed matrices, cuda vs cpu
   slice_small_train  one training step (``train.make_train_step``) of the
                goldens' x8 model, f32, B = 1, T = 3, 64², fixed t and noise,
                on cuda (K1) vs cpu (plain): loss, grad_norm, every gradient,
-               the updated parameters and the EMA stream
+               the updated parameters and the EMA stream; then the same for
+               the goldens' gaussian BlurUNet with remat (32-channel heads:
+               K1 and K2, each launched twice a site)
   train_full   the x8 BicubicUNet at the registry defaults training through
                ``train.TrainRunner`` (bf16 trunk, float32 parameters, AdamW,
                one EMA stream), B = 1, T = TRAIN_T at 512²: a warm-up step,
                TRAIN_STEPS timed steps (K1 launches per step held), the
                forward / backward split of one more pass by CUDA events,
                every gradient finite and non-zero; then a save, a new runner
-               that resumes (its state equal to the saved one) and a step
+               that resumes (its state equal to the saved one) and a step;
+               then the same model with remat (``use_checkpoint``) at
+               T = REMAT_T: a warm-up and one timed step, peak, K1 launches
+  train_full_blur  the BlurUNet at the registry defaults with remat, bf16
+               trunk, training through ``TrainRunner`` on the gaussian
+               task's 1000-step schedule (LEARNED_RANGE: the VB term),
+               B = 1, T = 5 at 512², conditioning built as restore_video's
+               blur branch builds it: a warm-up, BLUR_STEPS timed steps (K1
+               and K2 launches per step held), the forward / backward split,
+               peak, every gradient finite and non-zero
   slice_full   full-width BicubicUNet, 13-frame 64² clip → 512², ddim25
   slice_full_gaussian  full-width BlurUNet, 10-frame 128² clip → 512²,
                gaussian task, ddim25
@@ -95,7 +108,8 @@ from flair_tpu_torch.diffusion import (
     GuidanceConfig, get_named_beta_schedule, make_diffusion,
     make_task_diffusion, training_losses)
 from flair_tpu_torch.face.helper import FaceRestoreHelper, make_face_fn_p
-from flair_tpu_torch.models.adm import BlurUNet
+from flair_tpu_torch.models.adm import BlurUNet, EncoderUNetModel, SuperResModel
+from flair_tpu_torch.models.blocks import AttentionBlock
 from flair_tpu_torch.models.codeformer import CodeFormer
 from flair_tpu_torch.models.parsenet import ParseNet
 from flair_tpu_torch.models.registry import get_model
@@ -110,8 +124,8 @@ from flair_tpu_torch.pipeline.video import (
     TASK_CONFIGS, init_from_degraded, restore_video, rnn_input_for, scale_tau,
     window_slices)
 from flair_tpu_torch.pipeline.wrappers import (
-    wrap_bicubic_model, wrap_bicubic_train, wrap_blur_model, wrap_codeformer,
-    wrap_parsenet)
+    wrap_bicubic_model, wrap_bicubic_train, wrap_blur_model, wrap_blur_train,
+    wrap_codeformer, wrap_parsenet)
 from flair_tpu_torch.train import (
     TrainConfig, TrainRunner, create_train_state, make_train_step)
 from flair_tpu_torch.utils import build
@@ -122,8 +136,8 @@ from flair_tpu_torch.utils.png import read_png, write_png
 
 ALL_PHASES = ("device", "build", "kernel_dcn", "kernel_flash", "slice_small",
               "slice_small_blur", "slice_small_face", "slice_small_train",
-              "train_full", "slice_full", "slice_full_gaussian",
-              "slice_full_face", "detector", "cli")
+              "train_full", "train_full_blur", "slice_full",
+              "slice_full_gaussian", "slice_full_face", "detector", "cli")
 EXTRA_PHASES = ("profile_step",)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MEM_BW = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
@@ -175,10 +189,18 @@ GRAD_TOL = {torch.float32: 1e-5, torch.bfloat16: 1e-2}
 # by up to 5e-6 of the largest with a 1e-6 change of the input
 TRAIN_GRAD_FLOOR = 0.2
 TRAIN_LR = 1e-4
-# train_full: frames per clip (T = 5 keeps ~85 GiB of activations for the
-# backward, more than the card holds: PERF.md §6, PR 8) and timed steps
+# train_full: frames per clip without remat (T = 5 keeps ~85 GiB of
+# activations for the backward, more than the card holds: PERF.md §6)
+# and timed steps; then REMAT_T frames with remat, one timed step
 TRAIN_T = 3
 TRAIN_STEPS = 3
+REMAT_T = 5
+# train_full_blur: the BlurUNet's temporal_frames, timed steps
+BLUR_T = 5
+BLUR_STEPS = 2
+# slice_small_blur's SuperResModel / EncoderUNetModel rows: max abs error
+# over the largest |output|, cuda (TF32 off) vs cpu, f32
+SMALL_MODEL_TOL = 1e-5
 FULL_STEPS = "ddim25"
 SLEEP_CYCLES_PER_CALL = 400_000   # ~0.2 ms at the H100's SM clock
 DCN_PER_STEP = {"slice_full": 108, "slice_full_gaussian": 180,
@@ -198,6 +220,19 @@ DET_HEAD_SCALE = 0.01   # the box check's heads: scores spread about 0.5
 DET_MIN_BOXES = 10      # anchors the box check's threshold must pass
 FACE_MATRIX = np.array([[1.1, 0.08, 12.0], [-0.08, 1.1, -9.0]],
                        np.float32)   # bench.py:266-268
+# SuperResModel / EncoderUNetModel at tests/test_torch_adm.py's size
+# (32-channel heads: K2 takes D = 32 / 64)
+SMALL_SR = dict(image_size=32, model_channels=32, num_res_blocks=1,
+                attention_resolutions=(2,), rnn_resolutions=(1,),
+                channel_mult=(1, 2), num_head_channels=32, temporal_frames=5)
+SMALL_ENC = dict(image_size=32, in_channels=3, model_channels=32,
+                 out_channels=10, num_res_blocks=1, attention_resolutions=(2,),
+                 channel_mult=(1, 2), num_head_channels=32)
+# the goldens' gaussian BlurUNet, with 32-channel heads for K2
+SMALL_BLUR = dict(image_size=64, model_channels=32, num_res_blocks=1,
+                  attention_resolutions=(2,), rnn_resolutions=(1,),
+                  channel_mult=(1, 2), num_heads=1, num_head_channels=32,
+                  temporal_frames=5)
 # the small face models: 64² faces (a 16² latent), as tests/test_torch_pipeline.py
 SMALL_CF = dict(dim_embd=64, n_head=4, n_layers=1, codebook_size=32,
                 latent_size=256, connect_list=("32", "64"), nf=32,
@@ -797,6 +832,52 @@ def phase_slice_small_blur(ctx):
         if not (rec["psnr_db_cuda_vs_cpu"] >= SMALL_PSNR_DB
                 and rec["dcn_launches"] > 0 and rec["flash_launches"] > 0):
             raise AssertionError(f"slice_small_blur failed its checks: {rec}")
+    phase_slice_small_models(ctx)
+
+
+def small_model_row(name, model, args):
+    """``model`` (f32, eval) on cuda with TF32 off against cpu on the same
+    numpy ``args``: max abs error over the largest |cpu output|, and the
+    kernel launches of the cuda call (comparisons: not counted)."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    saved = deform_conv2d_raw.launches, flash_attention.launches
+    with torch.no_grad():
+        out_c = model(*(torch.from_numpy(a) for a in args))
+        model.to("cuda")
+        out_g = model(*(torch.from_numpy(a).cuda() for a in args))
+        torch.cuda.synchronize()
+    launches = (deform_conv2d_raw.launches - saved[0],
+                flash_attention.launches - saved[1])
+    deform_conv2d_raw.launches, flash_attention.launches = saved
+    torch.backends.cudnn.allow_tf32 = True
+    rel = float((out_g.cpu() - out_c).abs().max() / out_c.abs().max())
+    return {"phase": "slice_small_blur", "model": name,
+            "shape": list(out_g.shape), "max_rel_err_cuda_vs_cpu": rel,
+            "tol_rel": SMALL_MODEL_TOL, "dcn_launches": launches[0],
+            "flash_launches": launches[1]}
+
+
+def phase_slice_small_models(ctx):
+    """SuperResModel and EncoderUNetModel (seeded random weights at 0.02)
+    at the CPU tests' size, cuda (K1 / K2) against cpu."""
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((1, 3, 32, 32, 3)).astype(np.float32)
+    low = np.tanh(rng.standard_normal((1, 3, 16, 16, 3))).astype(np.float32)
+    t = np.array([[17, 17, 17]], np.int64)
+    sr = SuperResModel(**SMALL_SR)
+    sr.random_init(seed=0, scale=0.02)
+    enc = EncoderUNetModel(**SMALL_ENC)
+    enc.random_init(seed=1, scale=0.02)
+    for name, model, args, need in (
+            ("superres_unet", sr, (x, t, low), (1, 1)),
+            ("encoder_unet", enc, (x, t), (0, 1))):
+        rec = small_model_row(name, model.eval(), args)
+        emit(rec)
+        if not (rec["max_rel_err_cuda_vs_cpu"] <= SMALL_MODEL_TOL
+                and rec["dcn_launches"] >= need[0]
+                and rec["flash_launches"] >= need[1]):
+            raise AssertionError(f"slice_small_blur {name} failed: {rec}")
 
 
 def phase_slice_small_face(ctx):
@@ -830,6 +911,11 @@ def dcn_sites(model) -> int:
     return sum(isinstance(m, BasicVSRPP) for m in model.modules())
 
 
+def attention_sites(model) -> int:
+    """AttentionBlocks and AttentionBottleBlocks: one K2 call each."""
+    return sum(isinstance(m, AttentionBlock) for m in model.modules())
+
+
 def small_train_step(device):
     """One ``make_train_step`` of the goldens' x8 model (f32) on ``device``,
     B = 1, T = 3, 64², t and noise fixed. Returns (model, state, metrics,
@@ -861,28 +947,57 @@ def small_train_step(device):
     return model, state, met, launches
 
 
-def phase_slice_small_train(ctx):
-    """One training step of the goldens' x8 model on cuda (K1 forward,
-    plain float32 DCN backward, cuDNN) against cpu (plain), f32 with TF32
-    off: loss and grad_norm within 1e-5 relative, every gradient within
-    1e-4 of max(its largest entry, TRAIN_GRAD_FLOOR of the model's largest);
-    the updated parameters where |g_cpu| is above that gradient's tolerance
-    (Adam's first update is ±lr there), within 1e-2·lr; the EMA stream
-    within 1e-7."""
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    t0 = time.time()
-    model, st_g, met_g, launches = small_train_step("cuda")
-    secs = time.time() - t0
-    _, st_c, met_c, _ = small_train_step("cpu")
-    torch.backends.cudnn.allow_tf32 = True
+def small_blur_train_step(device, x_scale=1.0):
+    """One ``make_train_step`` of the goldens' gaussian BlurUNet with remat
+    (SMALL_BLUR), f32, on ``device``: the gaussian task's 1000-step
+    schedule, B = 1, T = 3, 64², separate ``rnn_input``, t and noise fixed,
+    ``x_start`` scaled by ``x_scale``. Returns (model, state, metrics,
+    {kernel: launches})."""
+    _, _, flat = golden("gaussian_s64")
+    model = BlurUNet(**SMALL_BLUR, use_checkpoint=True)
+    model.load_state_dict(from_flax_blur_unet(flat))
+    model.to(device)
+    d = make_task_diffusion("gaussian", "1000", device=device)
+    cfg = TrainConfig(lr=TRAIN_LR, ema_rates=(0.9999,))
+    state = create_train_state(dict(model.named_parameters()), cfg)
+    rng = np.random.default_rng(3)
+    x0, low, rnn = (np.tanh(rng.standard_normal((1, 3, 64, 64, 3)))
+                    .astype(np.float32) for _ in range(3))
+    noise = rng.standard_normal((1, 3, 64, 64, 3)).astype(np.float32)
+
+    def dev(a):
+        return torch.as_tensor(a, device=device)
+
+    saved = deform_conv2d_raw.launches, flash_attention.launches
+    deform_conv2d_raw.launches = flash_attention.launches = 0
+    state, met = make_train_step(d, wrap_blur_train(d, model), cfg)(
+        state, {"x_start": dev(x0) * x_scale, "low_res_input": dev(low),
+                "rnn_input": dev(rnn)},
+        t=dev(np.array([700])), noise=dev(noise))
+    launches = {"dcn_raw": deform_conv2d_raw.launches,
+                "flash_attn": flash_attention.launches}
+    deform_conv2d_raw.launches, flash_attention.launches = saved
+    return model, state, met, launches
+
+
+def train_errors(st_g, met_g, st_c, met_c, jump=None):
+    """A cuda training step against the cpu one: loss and grad_norm
+    relative errors; each gradient's error over its bound, 1e-4 of
+    max(its largest entry, TRAIN_GRAD_FLOOR of the model's largest), or
+    twice its ``jump`` (name → the cuda step's own largest change over
+    reruns) where that is larger, with the tensors that needed it; the updated parameters where |g_cpu| is above that bound
+    (Adam's first update is ±lr there); the EMA stream."""
     g_max = max(g.abs().max().item() for g in met_c["grads"].values())
     err = {"grad": 0.0, "param": 0.0, "ema": 0.0}
-    live = 0
+    live, jumpy = 0, []
     for k, gc in met_c["grads"].items():
         gg = met_g["grads"][k].cpu()
         tol = 1e-4 * max(gc.abs().max().item(), TRAIN_GRAD_FLOOR * g_max)
-        err["grad"] = max(err["grad"], (gg - gc).abs().max().item() / tol)
+        e = (gg - gc).abs().max().item()
+        if jump is not None and tol < e <= 2 * float(jump[k]):
+            tol = 2 * float(jump[k])
+            jumpy.append(k)
+        err["grad"] = max(err["grad"], e / tol)
         mask = gc.abs() > tol
         live += int(mask.sum())
         dp = (st_g.params[k].detach().cpu() - st_c.params[k].detach())[mask]
@@ -893,21 +1008,77 @@ def phase_slice_small_train(ctx):
                          .item())
     rel = {k: abs(float(met_g[k]) - float(met_c[k])) / abs(float(met_c[k]))
            for k in ("loss", "grad_norm")}
+    return {"loss": float(met_g["loss"]), "grad_norm": float(met_g["grad_norm"]),
+            "rel_err": rel, "grad_err_over_tol": err["grad"],
+            "grads_on_ulp_jump": jumpy, "param_err": err["param"],
+            "param_tol": 1e-2 * TRAIN_LR, "params_compared": live,
+            "ema_err": err["ema"], "ema_tol": 1e-7}
+
+
+def train_ok(rec) -> bool:
+    return (max(rec["rel_err"].values()) <= 1e-5
+            and rec["grad_err_over_tol"] <= 1.0
+            and rec["param_err"] <= rec["param_tol"]
+            and rec["ema_err"] <= rec["ema_tol"])
+
+
+def phase_slice_small_train(ctx):
+    """One training step of the goldens' x8 model on cuda (K1 forward,
+    plain float32 DCN backward, cuDNN) against cpu (plain), f32 with TF32
+    off: loss and grad_norm within 1e-5 relative, every gradient within
+    1e-4 of max(its largest entry, TRAIN_GRAD_FLOOR of the model's largest);
+    the updated parameters where |g_cpu| is above that gradient's tolerance
+    (Adam's first update is ±lr there), within 1e-2·lr; the EMA stream
+    within 1e-7. Then the goldens' gaussian BlurUNet with remat (K1 and K2
+    forwards, each run twice a site; the VB term) under the same checks,
+    where a gradient may also differ by twice the card's own largest change
+    over three reruns (x_start one ulp up, one down, and as it is;
+    ``train_errors``: the BlurUNet's VSR++ / SPyNet gradients jump at
+    leaky-ReLU kinks and integer sample positions, tests/test_torch_remat.py)
+    for at most 5 % of the tensors."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    t0 = time.time()
+    model, st_g, met_g, launches = small_train_step("cuda")
+    secs = time.time() - t0
+    _, st_c, met_c, _ = small_train_step("cpu")
     expect = 2 * 2 * dcn_sites(model)       # 2 branches × (T - 1) frames
-    rec = {"phase": "slice_small_train", "loss": float(met_g["loss"]),
-           "grad_norm": float(met_g["grad_norm"]), "rel_err": rel,
-           "grad_err_over_tol": err["grad"],
-           "param_err": err["param"], "param_tol": 1e-2 * TRAIN_LR,
-           "params_compared": live, "ema_err": err["ema"], "ema_tol": 1e-7,
+    rec = {"phase": "slice_small_train", "model": "x8_s64",
+           **train_errors(st_g, met_g, st_c, met_c),
            "dcn_launches": launches, "dcn_launches_expected": expect,
            "seconds_cuda": round(secs, 3)}
     emit(rec)
     ctx.setdefault("launches", {})["slice_small_train"] = {
         "dcn_raw": launches, "flash_attn": 0}
-    if not (max(rel.values()) <= 1e-5 and err["grad"] <= 1.0
-            and err["param"] <= 1e-2 * TRAIN_LR and err["ema"] <= 1e-7
-            and launches == expect):
+    if not (train_ok(rec) and launches == expect):
+        torch.backends.cudnn.allow_tf32 = True
         raise AssertionError(f"slice_small_train failed its checks: {rec}")
+
+    t0 = time.time()
+    model, st_g, met_g, launches = small_blur_train_step("cuda")
+    secs = time.time() - t0
+    # the card's own resolution: x_start one ulp up, one down, and a plain
+    # rerun (cuDNN's backward may sum in another order)
+    jump = {k: torch.zeros(()) for k in met_g["grads"]}
+    for scale in (1 + 1e-7, 1 - 1e-7, 1.0):
+        moved = small_blur_train_step("cuda", scale)[2]["grads"]
+        for k, g in met_g["grads"].items():
+            jump[k] = torch.maximum(jump[k], (moved[k] - g).abs().max().cpu())
+    _, st_c, met_c, _ = small_blur_train_step("cpu")
+    torch.backends.cudnn.allow_tf32 = True
+    # remat runs every region's forward twice: 2 branches × (T - 1) frames
+    # a VSR++ site, one call an attention block, each twice
+    expect = {"dcn_raw": 2 * 2 * 2 * dcn_sites(model),
+              "flash_attn": 2 * attention_sites(model)}
+    rec = {"phase": "slice_small_train", "model": "gaussian_s64 (remat)",
+           **train_errors(st_g, met_g, st_c, met_c, jump),
+           "tensors": len(jump), "launches": launches,
+           "launches_expected": expect, "seconds_cuda": round(secs, 3)}
+    emit(rec)
+    ctx["launches"]["slice_small_train_blur"] = launches
+    if not (train_ok(rec) and launches == expect
+            and len(rec["grads_on_ulp_jump"]) <= 0.05 * len(jump)):
+        raise AssertionError(f"slice_small_train (BlurUNet) failed: {rec}")
 
 
 def forward_backward_ms(apply, d, params, batch, gen):
@@ -958,12 +1129,7 @@ def phase_train_full(ctx):
     d = x8_train_diffusion(dev)
     cfg = TrainConfig(lr=TRAIN_LR, ema_rates=(0.9999,))
     apply = wrap_bicubic_train(d, model)
-    gen = torch.Generator(dev).manual_seed(1)
-    clip64 = torch.rand((1, TRAIN_T, 64, 64, 3), generator=gen, device=dev)
-    low = init_from_degraded(clip64, TASK_CONFIGS["x8_bicubic"])
-    x_start = torch.clamp(low + 0.1 * torch.randn(low.shape, generator=gen,
-                                                  device=dev), -1, 1)
-    batch = {"x_start": x_start, "low_res_input": low}
+    batch, gen = x8_train_batch(TRAIN_T, dev)
     expect = {"dcn_raw": 2 * (TRAIN_T - 1) * dcn_sites(model),
               "flash_attn": 0}
     rec = {"phase": "train_full", "model": "bicubic_unet (registry defaults)",
@@ -977,14 +1143,7 @@ def phase_train_full(ctx):
         runner = TrainRunner(d, apply, cfg, model, **kw)
 
         def step(r):
-            torch.cuda.synchronize()
-            deform_conv2d_raw.launches = flash_attention.launches = 0
-            t0 = time.perf_counter()
-            host = r.run_step(batch)
-            torch.cuda.synchronize()
-            ms = (time.perf_counter() - t0) * 1e3
-            return host, ms, {"dcn_raw": deform_conv2d_raw.launches,
-                              "flash_attn": flash_attention.launches}
+            return timed_step(r, batch)
 
         step_ms, launches, losses, norms = [], [], [], []
         for i in range(1 + TRAIN_STEPS):
@@ -996,13 +1155,8 @@ def phase_train_full(ctx):
             losses.append(float(host["loss"]))
             norms.append(float(host["grad_norm"]))
         rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-        grads = host.pop("grads")
-        bad = {k: ("None" if g is None else
-                   "non-finite" if not torch.isfinite(g).all() else
-                   "zero" if not g.abs().max() > 0 else None)
-               for k, g in grads.items()}
-        bad = {k: v for k, v in bad.items() if v is not None}
-        del grads, host
+        bad = bad_gradients(host.pop("grads"))
+        del host
         saved = deform_conv2d_raw.launches
         fwd_ms, bwd_ms = forward_backward_ms(apply, d, runner.state.params,
                                              batch, gen)
@@ -1053,6 +1207,170 @@ def phase_train_full(ctx):
             and all(n == expect for n in launches)
             and rec["resumed_step"]["launches"] == expect):
         raise AssertionError(f"train_full failed its checks: {rec}")
+    train_full_remat(ctx)
+
+
+def timed_step(runner, batch):
+    """One ``runner.run_step(batch)``, every kernel count set to 0 just
+    before and read just after: (host metrics, wall ms, launches)."""
+    torch.cuda.synchronize()
+    deform_conv2d_raw.launches = flash_attention.launches = 0
+    t0 = time.perf_counter()
+    host = runner.run_step(batch)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return host, ms, {"dcn_raw": deform_conv2d_raw.launches,
+                      "flash_attn": flash_attention.launches}
+
+
+def bad_gradients(grads) -> dict:
+    """The parameters whose gradient is missing, non-finite or zero."""
+    bad = {k: ("None" if g is None else
+               "non-finite" if not torch.isfinite(g).all() else
+               "zero" if not g.abs().max() > 0 else None)
+           for k, g in grads.items()}
+    return {k: v for k, v in bad.items() if v is not None}
+
+
+def x8_train_batch(frames, dev):
+    """train_full's batch: ``low_res_input`` the bicubic ×8 upsample of a
+    seeded 64² clip, ``x_start`` it plus noise at 0.1, clamped; and the
+    generator, drawn on."""
+    gen = torch.Generator(dev).manual_seed(1)
+    clip64 = torch.rand((1, frames, 64, 64, 3), generator=gen, device=dev)
+    low = init_from_degraded(clip64, TASK_CONFIGS["x8_bicubic"])
+    x_start = torch.clamp(low + 0.1 * torch.randn(low.shape, generator=gen,
+                                                  device=dev), -1, 1)
+    return {"x_start": x_start, "low_res_input": low}, gen
+
+
+def train_full_remat(ctx):
+    """train_full's second row: the same x8 model with ``use_checkpoint``
+    (every SR3LevelBlock recomputed in the backward) at T = REMAT_T, a
+    warm-up step and one timed step through ``TrainRunner``: ms, peak,
+    K1 launches (each level block's forward runs twice: 2 × 2 branches ×
+    (T - 1) frames a VSR++ site)."""
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    held_gib = torch.cuda.memory_allocated() / 2 ** 30
+    model = get_model("bicubic_unet", dtype=torch.bfloat16,
+                      use_checkpoint=True)
+    model.random_init(seed=0, scale=0.02)
+    d = x8_train_diffusion(dev)
+    cfg = TrainConfig(lr=TRAIN_LR, ema_rates=(0.9999,))
+    batch, _ = x8_train_batch(REMAT_T, dev)
+    expect = {"dcn_raw": 2 * 2 * (REMAT_T - 1) * dcn_sites(model),
+              "flash_attn": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_log.configure(os.path.join(tmp, "log"), format_strs=["json"])
+        runner = TrainRunner(d, wrap_bicubic_train(d, model), cfg, model,
+                             ckpt_dir=tmp, device=dev, log_interval=10 ** 9,
+                             save_interval=10 ** 9)
+        warm = timed_step(runner, batch)
+        torch.cuda.reset_peak_memory_stats()
+        host, ms, launches = timed_step(runner, batch)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        bad = bad_gradients(host.pop("grads"))
+        del runner, host
+    rec = {"phase": "train_full", "row": "remat",
+           "model": "bicubic_unet (registry defaults, use_checkpoint)",
+           "batch": [1, REMAT_T, 512, 512, 3], "warmup_ms": warm[1],
+           "ms_per_step": ms, "peak_gib": peak,
+           "launches_per_step": [warm[2], launches],
+           "launches_expected": expect, "loss": float(warm[0]["loss"]),
+           "params_without_gradient": bad,
+           "allocated_before_gib": held_gib, "card": ctx["smi"]}
+    emit(rec)
+    ctx["launches"]["train_full_remat"] = launches
+    del model
+    torch.cuda.empty_cache()
+    if not (launches == expect and warm[2] == expect and not bad
+            and np.isfinite(rec["loss"])):
+        raise AssertionError(f"train_full (remat) failed its checks: {rec}")
+
+
+def phase_train_full_blur(ctx):
+    """The BlurUNet at the registry defaults (M = 10, G = 16, VSR++ at 512²
+    and 256², 16 attention sites; seeded random weights at 0.02, bf16
+    trunk, float32 parameters) with ``use_checkpoint`` training through
+    ``TrainRunner`` and ``wrap_blur_train``: AdamW lr 1e-4, one EMA stream
+    (0.9999), the gaussian task's 1000-step face_blur schedule with
+    LEARNED_RANGE (the loss adds the VB term); B = 1, T = BLUR_T at 512²,
+    ``low_res_input`` / ``rnn_input`` built from a seeded 128² clip as
+    restore_video's blur branch builds them, ``x_start`` the conditioning
+    plus noise at 0.1, clamped. A warm-up step, BLUR_STEPS timed steps,
+    each with its K1 / K2 counts set to 0 just before ``run_step`` and read
+    just after, held to the expected launches (each remat'd region runs its
+    forward twice); the forward / backward split of one more pass; peak;
+    every gradient finite and non-zero."""
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    held_gib = torch.cuda.memory_allocated() / 2 ** 30
+    model = get_model("blur_unet", dtype=torch.bfloat16, use_checkpoint=True)
+    model.random_init(seed=0, scale=0.02)
+    d = make_task_diffusion("gaussian", "1000", device=dev)
+    cfg = TrainConfig(lr=TRAIN_LR, ema_rates=(0.9999,))
+    apply = wrap_blur_train(d, model)
+    task = TASK_CONFIGS["gaussian"]
+    gen = torch.Generator(dev).manual_seed(2)
+    clip128 = torch.rand((1, BLUR_T, task.input_size, task.input_size, 3),
+                         generator=gen, device=dev)
+    low = init_from_degraded(clip128, task)
+    rnn = rnn_input_for(clip128, low, task)
+    x_start = torch.clamp(low + 0.1 * torch.randn(low.shape, generator=gen,
+                                                  device=dev), -1, 1)
+    batch = {"x_start": x_start, "low_res_input": low, "rnn_input": rnn}
+    expect = {"dcn_raw": 2 * 2 * (BLUR_T - 1) * dcn_sites(model),
+              "flash_attn": 2 * attention_sites(model)}
+    rec = {"phase": "train_full_blur",
+           "model": "blur_unet (registry defaults, use_checkpoint)",
+           "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+           "batch": [1, BLUR_T, 512, 512, 3], "launches_expected": expect}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_log.configure(os.path.join(tmp, "log"), format_strs=["json"])
+        runner = TrainRunner(d, apply, cfg, model, ckpt_dir=tmp, device=dev,
+                             log_interval=10 ** 9, save_interval=10 ** 9)
+        step_ms, launches, losses, norms = [], [], [], []
+        for i in range(1 + BLUR_STEPS):
+            if i == 1:
+                torch.cuda.reset_peak_memory_stats()
+            host, ms, n = timed_step(runner, batch)
+            step_ms.append(ms)
+            launches.append(n)
+            losses.append(float(host["loss"]))
+            norms.append(float(host["grad_norm"]))
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        bad = bad_gradients(host.pop("grads"))
+        del host
+        saved = deform_conv2d_raw.launches, flash_attention.launches
+        fwd_ms, bwd_ms = forward_backward_ms(apply, d, runner.state.params,
+                                             batch, gen)
+        deform_conv2d_raw.launches, flash_attention.launches = saved
+        del runner
+    med = float(np.median(step_ms[1:]))
+    rec.update({
+        "step_ms": step_ms[1:], "warmup_ms": step_ms[0], "ms_per_step": med,
+        "forward_ms": fwd_ms, "backward_ms": bwd_ms,
+        "backward_share": bwd_ms / med, "update_ms": med - fwd_ms - bwd_ms,
+        "launches_per_step": launches, "loss": losses, "grad_norm": norms,
+        "params_without_gradient": bad, "allocated_before_gib": held_gib,
+        "card": ctx["smi"]})
+    grad_rows = {r["shape"]: r["backward_ms"]
+                 for r in ctx.get("dcn_grad_rows", ())
+                 if r["dtype"] == str(torch.bfloat16)}
+    if len(grad_rows) == 2:
+        # plain DCN backwards (one a forward launch without remat): half at
+        # 512², half at 256²; the rows are M = 5, the BlurUNet's M is 10
+        per_step = sum(grad_rows.values()) * expect["dcn_raw"] / 4
+        rec["dcn_backward_ms_per_step_m5_rows"] = per_step
+        rec["dcn_backward_share"] = per_step / med
+    emit(rec)
+    ctx.setdefault("launches", {})["train_full_blur"] = launches[-1]
+    del model
+    torch.cuda.empty_cache()
+    finite = all(np.isfinite(v) for v in losses + norms)
+    if not (finite and not bad and all(n == expect for n in launches)):
+        raise AssertionError(f"train_full_blur failed its checks: {rec}")
 
 
 def run_full(ctx, name, task, model, make_apply, clip, face=None):

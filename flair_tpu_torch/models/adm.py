@@ -20,8 +20,16 @@ the variance fractions). The trunk runs in ``dtype``; norms use float32
 statistics; the time MLP, SPyNet and the final norm + conv stay float32.
 Only the ``resblock_updown=True``, ``temporal_block=True`` form is ported
 (every reference config uses it; ``enable_cross_frames=False`` skips the
-temporal modules at call time); ``SuperResModel`` and ``EncoderUNetModel``
-are not.
+temporal modules at call time).
+
+``use_checkpoint`` recomputes the activations of every ResBlock (2-D and
+3-D), AttentionBlock, AttentionBottleBlock, TemporalAttention and
+BasicVSRPP in the backward, the set the JAX package wraps in ``nn.remat``
+(adm.py:133-143); parameter names do not change.
+
+Also ``SuperResModel`` (a BlurUNet on the bilinear upsample of ``low_res``,
+its parameters under ``unet.``) and ``EncoderUNetModel`` (the down trunk,
+middle block and the ``adaptive`` pooled head), unet_new.py:1365-1593.
 """
 
 from __future__ import annotations
@@ -32,9 +40,10 @@ import torch
 import torch.nn as nn
 
 from ..ops.embed import timestep_embedding
-from ..ops.resize import resize_bicubic
+from ..ops.resize import resize_bicubic, resize_bilinear
 from .blocks import AttentionBlock, AttentionBottleBlock, ResBlock
-from .common import Conv2d, Dense, GroupNorm32, nchw, nhwc, random_init_, silu
+from .common import (Conv2d, Dense, GroupNorm32, checkpointed, nchw, nhwc,
+                     random_init_, silu)
 from .registry import register_model
 from .spynet import SPyNet
 from .temporal import TemporalAttention
@@ -53,10 +62,12 @@ class BlurUNet(nn.Module):
                  channel_mult: Sequence[float] = (0.5, 1, 1, 2, 2, 4, 4),
                  num_heads: int = 1, num_head_channels: int = 64,
                  use_scale_shift_norm: bool = True, temporal_frames: int = 5,
-                 deform_groups: int = 16, dtype=torch.float32):
+                 deform_groups: int = 16, use_checkpoint: bool = False,
+                 dtype=torch.float32):
         super().__init__()
         mc = model_channels
         self.image_size = image_size
+        self.use_checkpoint = use_checkpoint
         self.model_channels = mc
         self.num_res_blocks = num_res_blocks
         self.attention_resolutions = tuple(attention_resolutions)
@@ -164,21 +175,26 @@ class BlurUNet(nn.Module):
         if flows is None:
             flows = self.compute_flows(rnn_input, enable_cross_frames)
 
+        def block(name, *args, **kw):
+            module = getattr(self, name)
+            if self.use_checkpoint:
+                return checkpointed(module, *args, **kw)
+            return module(*args, **kw)
+
         def after_res(h, name, ds):
             """[3-D ResBlock] → [attention → temporal attention] →
             [BasicVSR++] after the ResBlock ``<name>_res`` (the JAX
             package's maybe_temporal_res / maybe_attn / maybe_vsrpp)."""
             if cross:
-                h = getattr(self, name + "_res3d")(h, emb, b)
+                h = block(name + "_res3d", h, emb, b)
             if ds in self.attention_resolutions:
-                h = getattr(self, name + "_attn")(h, b)
+                h = block(name + "_attn", h, b)
                 if cross:
-                    h = getattr(self, name + "_attn_temporal")(h, b)
+                    h = block(name + "_attn_temporal", h, b)
             if cross and ds in self.rnn_resolutions:
                 fl = flows[h.shape[2]]
-                h = getattr(self, name + "_vsrpp")(
-                    h, b, fl[0], fl[1], vsrpp_weights,
-                    flows_forward2=fl[2], flows_backward2=fl[3])
+                h = block(name + "_vsrpp", h, b, fl[0], fl[1], vsrpp_weights,
+                          flows_forward2=fl[2], flows_backward2=fl[3])
             return h
 
         h = nchw(x.reshape(n, hh, ww, x.shape[-1])).to(self.dtype)
@@ -188,30 +204,132 @@ class BlurUNet(nn.Module):
         last = len(self.channel_mult) - 1
         for level in range(len(self.channel_mult)):
             for i in range(self.num_res_blocks):
-                h = getattr(self, f"in_{level}_{i}_res")(h, emb, b)
+                h = block(f"in_{level}_{i}_res", h, emb, b)
                 h = after_res(h, f"in_{level}_{i}", ds)
                 hs.append(h)
             if level != last:
-                h = getattr(self, f"in_{level}_down")(h, emb, b)
+                h = block(f"in_{level}_down", h, emb, b)
                 hs.append(h)
                 ds *= 2
-        h = self.mid_res1(h, emb, b)
+        h = block("mid_res1", h, emb, b)
         if cross:
-            h = self.mid_res3d_1(h, emb, b)
-        h = self.mid_attn(h, emb, b)
+            h = block("mid_res3d_1", h, emb, b)
+        h = block("mid_attn", h, emb, b)
         if cross:
-            h = self.mid_attn_temporal(h, b)
-        h = self.mid_res2(h, emb, b)
+            h = block("mid_attn_temporal", h, b)
+        h = block("mid_res2", h, emb, b)
         if cross:
-            h = self.mid_res3d_2(h, emb, b)
+            h = block("mid_res3d_2", h, emb, b)
         for level in reversed(range(len(self.channel_mult))):
             for i in range(self.num_res_blocks + 1):
                 h = torch.cat([h, hs.pop()], dim=1)
-                h = getattr(self, f"out_{level}_{i}_res")(h, emb, b)
+                h = block(f"out_{level}_{i}_res", h, emb, b)
                 h = after_res(h, f"out_{level}_{i}", ds)
                 if level and i == self.num_res_blocks:
-                    h = getattr(self, f"out_{level}_up")(h, emb, b)
+                    h = block(f"out_{level}_up", h, emb, b)
                     ds //= 2
         h = silu(self.out_norm(h.float(), b))
         out = self.out_conv(h)
         return nhwc(out).reshape(b, t, hh, ww, -1)
+
+
+@register_model("superres_unet")
+class SuperResModel(nn.Module):
+    """A BlurUNet conditioned on ``low_res`` bilinearly upsampled to x's
+    size (adm.py:291-306, unet_new.py:1365-1390). The keywords build the
+    inner BlurUNet, registered as ``unet`` as the flax scope is."""
+
+    def __init__(self, **unet_kwargs):
+        super().__init__()
+        self.unet = BlurUNet(**unet_kwargs)
+
+    random_init = random_init_
+
+    def forward(self, x, timesteps, low_res=None, **kwargs):
+        """x (B, T, H, W, 3); low_res (B, T, h, w, 3) or None; the rest as
+        ``BlurUNet.forward`` takes it (``rnn_input`` defaults to the
+        upsample)."""
+        up = (None if low_res is None
+              else resize_bilinear(low_res, (x.shape[2], x.shape[3])))
+        return self.unet(x, timesteps, up, **kwargs)
+
+
+@register_model("encoder_unet")
+class EncoderUNetModel(nn.Module):
+    """Half-UNet encoder / classifier (adm.py:309-378, unet_new.py:
+    1393-1593): the ADM down trunk (ResBlocks with scale-shift norm,
+    attention at ``attention_resolutions`` through ``flash_attention``,
+    ResBlock down-sampling), middle ResBlock / attention / ResBlock, then
+    the ``adaptive`` head: norm, SiLU, spatial mean and a zero-init Dense.
+    x (B, T, H, W, in_channels), timesteps (B, T) → (B, T, out_channels)
+    float32. Only ``pool="adaptive"`` is ported, as in the JAX package."""
+
+    def __init__(self, image_size: int = 64, in_channels: int = 3,
+                 model_channels: int = 128, out_channels: int = 1000,
+                 num_res_blocks: int = 2,
+                 attention_resolutions: Sequence[int] = (16, 32),
+                 channel_mult: Sequence[float] = (1, 2, 4, 8),
+                 num_head_channels: int = 64,
+                 use_scale_shift_norm: bool = True, pool: str = "adaptive",
+                 dtype=torch.float32):
+        super().__init__()
+        if pool != "adaptive":
+            raise NotImplementedError(pool)
+        mc = model_channels
+        self.model_channels = mc
+        self.num_res_blocks = num_res_blocks
+        self.attention_resolutions = tuple(attention_resolutions)
+        self.channel_mult = tuple(channel_mult)
+        self.dtype = dtype
+        emb_dim = 4 * mc
+        ss = dict(use_scale_shift_norm=use_scale_shift_norm, dtype=dtype)
+        heads = dict(num_head_channels=num_head_channels, dtype=dtype)
+        self.time_embed_0 = Dense(mc, emb_dim)
+        self.time_embed_1 = Dense(emb_dim, emb_dim)
+        ch = int(self.channel_mult[0] * mc)
+        self.conv_in = Conv2d(in_channels, ch, 3, dtype=dtype)
+        ds = 1
+        last = len(self.channel_mult) - 1
+        for level, mult in enumerate(self.channel_mult):
+            c = int(mult * mc)
+            for i in range(num_res_blocks):
+                setattr(self, f"in_{level}_{i}_res",
+                        ResBlock(ch, c, emb_dim, **ss))
+                ch = c
+                if ds in self.attention_resolutions:
+                    setattr(self, f"in_{level}_{i}_attn",
+                            AttentionBlock(c, **heads))
+            if level != last:
+                setattr(self, f"in_{level}_down",
+                        ResBlock(c, c, emb_dim, down=True, **ss))
+                ds *= 2
+        self.mid_res1 = ResBlock(ch, ch, emb_dim, **ss)
+        self.mid_attn = AttentionBlock(ch, **heads)
+        self.mid_res2 = ResBlock(ch, ch, emb_dim, **ss)
+        self.out_norm = GroupNorm32(ch, 32)
+        self.out_proj = Dense(ch, out_channels, zero_init=True)
+
+    random_init = random_init_
+
+    def forward(self, x, timesteps):
+        b, t, hh, ww = x.shape[:4]
+        n = b * t
+        emb = timestep_embedding(timesteps.reshape(n), self.model_channels)
+        emb = self.time_embed_1(silu(self.time_embed_0(emb)))   # (N, 4mc) f32
+        h = nchw(x.reshape(n, hh, ww, x.shape[-1])).to(self.dtype)
+        h = self.conv_in(h)
+        ds = 1
+        last = len(self.channel_mult) - 1
+        for level in range(len(self.channel_mult)):
+            for i in range(self.num_res_blocks):
+                h = getattr(self, f"in_{level}_{i}_res")(h, emb, b)
+                if ds in self.attention_resolutions:
+                    h = getattr(self, f"in_{level}_{i}_attn")(h, b)
+            if level != last:
+                h = getattr(self, f"in_{level}_down")(h, emb, b)
+                ds *= 2
+        h = self.mid_res1(h, emb, b)
+        h = self.mid_attn(h, b)
+        h = self.mid_res2(h, emb, b)
+        h = silu(self.out_norm(h, b)).float().mean(dim=(2, 3))    # (N, C)
+        return self.out_proj(h).reshape(b, t, -1)

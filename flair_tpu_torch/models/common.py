@@ -15,6 +15,7 @@ import math
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.norms import group_norm, shift_window_group_norm
 
@@ -44,6 +45,28 @@ def random_init_(module: nn.Module, seed: int = 0, scale: float = 0.02) -> None:
     with torch.no_grad():
         for p in module.parameters():
             p.copy_(torch.randn(p.shape, generator=gen) * scale)
+
+
+def checkpointed(module: nn.Module, *args, **kwargs):
+    """``module(*args, **kwargs)`` with its activations recomputed in the
+    backward instead of kept (flax ``nn.remat``): a non-reentrant
+    ``torch.utils.checkpoint`` while autograd records, a plain call
+    otherwise (serving under ``no_grad`` is unchanged).
+
+    The recompute must see the tensors the forward saw. Under
+    ``torch.func.functional_call`` (the training wrappers) those are the
+    caller's ``params``, which the module no longer holds when the backward
+    runs, so the module's parameters and buffers are captured here and put
+    back for the recompute by ``functional_call``."""
+    if not torch.is_grad_enabled():
+        return module(*args, **kwargs)
+    held = dict(module.named_parameters())
+    held.update(module.named_buffers())
+
+    def run(*a, **kw):
+        return torch.func.functional_call(module, held, a, kw)
+
+    return checkpoint(run, *args, use_reentrant=False, **kwargs)
 
 
 class Conv2d(nn.Module):

@@ -1,7 +1,8 @@
 """Model registry: denoisers and temporal modules by name.
 
 Counterpart of ``flair_tpu/models/registry.py``; this package registers
-``bicubic_unet``, ``blur_unet``, ``spynet``, ``basicvsrpp``, ``codeformer``,
+``bicubic_unet``, ``blur_unet``, ``superres_unet``, ``encoder_unet``,
+``spynet``, ``basicvsrpp``, ``codeformer``,
 ``vqautoencoder``, ``parsenet`` and ``retinaface``."""
 
 from __future__ import annotations

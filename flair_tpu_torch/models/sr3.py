@@ -13,6 +13,10 @@ Public layout: x, low_res, rnn_input are (B, T, H, W, 3) and the output is
 (B, T, H, W, 3); inside, activations are (B·T, C, H, W) channels_last. The
 trunk runs in ``dtype`` (bf16 on the card); norms use float32 statistics,
 the noise MLP, SPyNet and the final block stay float32.
+
+``use_checkpoint`` recomputes every SR3LevelBlock's activations in the
+backward, the set the JAX package wraps in ``nn.remat`` (sr3.py:214-220);
+parameter names do not change.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ import torch.nn.functional as F
 from ..ops.embed import sr3_noise_embedding
 from ..ops.resize import resize_bilinear_aa
 from .blocks import ResBlock, SR3ResnetBlock, SR3SelfAttention
-from .common import Conv2d, Dense, GroupNorm32, nchw, nhwc, random_init_, silu
+from .common import (Conv2d, Dense, GroupNorm32, checkpointed, nchw, nhwc,
+                     random_init_, silu)
 from .registry import register_model
 from .spynet import SPyNet
 from .temporal import TemporalAttention, TemporalWrapper2
@@ -94,9 +99,10 @@ class BicubicUNet(nn.Module):
                  res_blocks: int = 1, image_size: int = 512,
                  cross_frame_module: bool = True, num_frames: int = 7,
                  head_dim: int = 64, deform_groups: int = 16,
-                 dtype=torch.float32):
+                 use_checkpoint: bool = False, dtype=torch.float32):
         super().__init__()
         self.inner_channel = inner_channel
+        self.use_checkpoint = use_checkpoint
         self.channel_mults = tuple(channel_mults)
         self.vsrpp_res = tuple(vsrpp_res)
         self.res_blocks = res_blocks
@@ -204,9 +210,12 @@ class BicubicUNet(nn.Module):
                               else resize_weight_map(vsrpp_weights, res, res))
 
         def level(name, h, res):
-            return getattr(self, name)(
-                h, emb, b, flows.get(res), wmaps.get(res, vsrpp_weights),
-                enable_cross_frames)
+            """One SR3LevelBlock; ``res`` None in the middle (no VSR++)."""
+            args = (h, emb, b, flows.get(res), wmaps.get(res, vsrpp_weights),
+                    enable_cross_frames)
+            if self.use_checkpoint:
+                return checkpointed(getattr(self, name), *args)
+            return getattr(self, name)(*args)
 
         h = nchw(x.reshape(n, hh, ww, x.shape[-1])).to(self.dtype)
         h = self.conv_in(h)
@@ -224,8 +233,7 @@ class BicubicUNet(nn.Module):
                 feats.append(h)
                 now_res //= 2
         for mi in range(2):
-            h = getattr(self, f"mid_{mi}")(h, emb, b, None, vsrpp_weights,
-                                           enable_cross_frames)
+            h = level(f"mid_{mi}", h, None)
         li = 0
         for ind in reversed(range(nm)):
             for _ in range(self.res_blocks + 1):

@@ -1,10 +1,10 @@
 """Differentiable JPEG codec on NHWC tensors.
 
 Counterpart of ``flair_tpu/ops/jpeg.py`` (reference
-guided_diffusion/jpeg.py:7-167); the uniform ``quantization_encode`` /
-``_decode`` codec is not ported. The encoded form is a pair ``(luma,
-chroma)``: luma (B, H, W, 1) and chroma (B, H/2, W/2, 2) of quantised DCT
-coefficients laid out as 8×8 spatial blocks.
+guided_diffusion/jpeg.py:7-187), with the uniform ``quantization_encode`` /
+``_decode`` codec. The encoded form is a pair ``(luma, chroma)``: luma
+(B, H, W, 1) and chroma (B, H/2, W/2, 2) of quantised DCT coefficients laid
+out as 8×8 spatial blocks.
 
 - Chroma is subsampled top-left (``[::2, ::2]``) before the transform and
   decoded by 2×2 repetition (jpeg.py:31, 152-157).
@@ -105,3 +105,19 @@ def jpeg_decode(planes, qf: int) -> torch.Tensor:
     cc = decode_plane(chroma, q2)
     cc = cc.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
     return ycbcr_to_rgb(torch.cat([y, cc], dim=-1)) / 255.0 * 2.0 - 1.0
+
+
+def quantization_encode(x: torch.Tensor, qf: int = 32) -> torch.Tensor:
+    """Uniform value quantization of x in [-1, 1] (jpeg.py:170-186). The
+    reference forces qf = 32 whatever it is given, kept here; its
+    ``x.int()`` truncates toward zero (an int32 cast, not a floor, which
+    differs on negatives)."""
+    qf = 32
+    v = ((x + 1.0) / 2.0 * 255.0).to(torch.int32)
+    v = torch.div(v, qf, rounding_mode="floor").float() / (255.0 / qf)
+    return v * 2.0 - 1.0
+
+
+def quantization_decode(x: torch.Tensor, qf: int = 32) -> torch.Tensor:
+    """Identity (jpeg.py:186-187): uniform quantization has no decode."""
+    return x

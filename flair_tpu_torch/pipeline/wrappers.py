@@ -64,6 +64,31 @@ def wrap_bicubic_train(d: Diffusion, model):
     return apply
 
 
+def wrap_blur_train(d: Diffusion, model):
+    """``apply_fn(params, x_t, ts, batch) → (eps, variance fraction)``
+    (B, T, H, W, 6) for training a BlurUNet with ``train.make_train_step``
+    (LEARNED_RANGE: the loss adds the VB term): each frame's t as the
+    original-schedule index ``scale_timesteps(map_timesteps(t))`` in int64,
+    ``batch["low_res_input"]`` as the conditioning and ``batch["rnn_input"]``
+    (default: the conditioning) as SPyNet's input, as ``restore_video``'s
+    blur branch builds them. ``params`` stand in for the model's own.
+
+    Both training wrappers hold under ``use_checkpoint``: the model's
+    ``checkpointed`` blocks capture the tensors ``functional_call`` put in,
+    so the backward's recompute runs on ``params`` too."""
+
+    def apply(params, x_t, ts, batch):
+        t_orig = scale_timesteps(d, map_timesteps(d, ts.reshape(-1)))
+        t_orig = t_orig.to(torch.int64).reshape(ts.shape)
+        low = batch["low_res_input"]
+        return torch.func.functional_call(
+            model, params, (x_t, t_orig, low),
+            {"rnn_input": batch.get("rnn_input", low)})
+
+    apply.model = model
+    return apply
+
+
 def wrap_blur_model(d: Diffusion, model, *, enable_cross_frames: bool = True):
     """``apply(x, t, low_res, rnn_input, vsrpp_weights, flows=None) →
     (eps, variance fraction)`` (B, T, H, W, 6) for a BlurUNet."""

@@ -16,6 +16,10 @@ interpolation).
     runner = TrainRunner(d, wrap_bicubic_train(d, model), TrainConfig(),
                          model, ckpt_dir="ckpts")
     runner.run_loop(batches)  # dicts: x_start, low_res_input (B, T, H, W, 3)
+
+The BlurUNet trains through ``wrap_blur_train`` on
+``make_task_diffusion("gaussian", "1000")`` (batches may add
+``rnn_input``); ``use_checkpoint=True`` in either model remats its blocks.
 """
 
 from .loop import (
