@@ -2,7 +2,8 @@
 each against its plain PyTorch version, and drives the port's main paths
 (x8_bicubic guided DDIM with the face prior on and off, gaussian) at full
 width on one card, then the entry point itself (``flair_tpu_torch.cli``,
-x8 with RetinaFace detection and jpeg, on PNG clips).
+x8 with RetinaFace detection and jpeg, on PNG clips), training (with AMT
+densifying ``skip = 2`` clips), the frame interpolators and DAVSRNet.
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases build,kernel_dcn,kernel_flash
@@ -16,6 +17,8 @@ Phases, one JSON line each (a record per shape for the kernels):
                timed; then correctness-only rows (DCN_EDGE): ragged pixel
                counts, B = 2, raw blocks as views and as separate tensors,
                flows past every border, every Cout, Cin/G of 8 to 32;
+               before them one timed float32 row at DAVSRNet's alignment
+               shape (G = 8, (1, 256², 128) → 64, M = 10, DCN_F32_TOL);
                then gradient rows (the autograd Function: kernel forward,
                plain float32 backward, against the plain version's own
                autograd on float32 copies, all eight inputs, backward
@@ -47,7 +50,10 @@ Phases, one JSON line each (a record per shape for the kernels):
                every gradient finite and non-zero; then a save, a new runner
                that resumes (its state equal to the saved one) and a step;
                then the same model with remat (``use_checkpoint``) at
-               T = REMAT_T: a warm-up and one timed step, peak, K1 launches
+               T = REMAT_T: a warm-up and one timed step, peak, K1 launches;
+               then that row with skip = 2: 3 conditioning frames densified
+               to REMAT_T by AMT-G inside TrainRunner, AMT's ms in the step,
+               no AMT parameter with a gradient or optimizer state
   train_full_blur  the BlurUNet at the registry defaults with remat, bf16
                trunk, training through ``TrainRunner`` on the gaussian
                task's 1000-step schedule (LEARNED_RANGE: the VB term),
@@ -55,6 +61,13 @@ Phases, one JSON line each (a record per shape for the kernels):
                blur branch builds it: a warm-up, BLUR_STEPS timed steps (K1
                and K2 launches per step held), the forward / backward split,
                peak, every gradient finite and non-zero
+  slice_small_interp  the CPU tests' SuperSloMo, tiny AMT and small
+               DAVSRNet (K1 f32, G = 2) on cuda vs cpu, f32, TF32 off
+  interp_full  AMT-G and SuperSloMo (registry defaults, f32) on one 512²
+               pair at factor 2: ms a call, peak, outputs finite
+  davsr_full   DAVSRNet at the registry defaults (f32, G = 8) on a 3-frame
+               64² clip → 15 frames at 256²: K1 launches held (112), ms a
+               forward, peak, output finite
   slice_full   full-width BicubicUNet, 13-frame 64² clip → 512², ddim25
   slice_full_gaussian  full-width BlurUNet, 10-frame 128² clip → 512²,
                gaussian task, ddim25
@@ -74,8 +87,9 @@ Phases, one JSON line each (a record per shape for the kernels):
                (10 frames, 128²); K1 / K2 launches held to the expected
                counts, 10 finite 512² PNGs read back per run
   profile_step (only when asked for) one denoiser call of each full-width
-               model, and one face call, under torch.profiler: device time
-               by kernel and by class, idle share
+               model, one face call, and one call of each interp_full /
+               davsr_full model, under torch.profiler: device time by
+               kernel and by class, idle share
 
 Then, on the lines before the last: one {"kernels": [...]} record and the
 card as nvidia-smi names it. The last line is the {"ok": ...} record.
@@ -89,6 +103,7 @@ import argparse
 import concurrent.futures
 import copy
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -109,12 +124,15 @@ from flair_tpu_torch.diffusion import (
     make_task_diffusion, training_losses)
 from flair_tpu_torch.face.helper import FaceRestoreHelper, make_face_fn_p
 from flair_tpu_torch.models.adm import BlurUNet, EncoderUNetModel, SuperResModel
+from flair_tpu_torch.models.amt import interpolate, make_interpolator
 from flair_tpu_torch.models.blocks import AttentionBlock
 from flair_tpu_torch.models.codeformer import CodeFormer
+from flair_tpu_torch.models.common import random_init_
 from flair_tpu_torch.models.parsenet import ParseNet
 from flair_tpu_torch.models.registry import get_model
 from flair_tpu_torch.models.retinaface import RetinaFace, RetinaFaceDetector
 from flair_tpu_torch.models.sr3 import BicubicUNet
+from flair_tpu_torch.models.superslomo import SuperSloMo
 from flair_tpu_torch.models.vsrpp import BasicVSRPP
 from flair_tpu_torch.ops.attention import dot_product_attention, flash_attention
 from flair_tpu_torch.ops.dcn import deform_conv2d_raw
@@ -136,7 +154,8 @@ from flair_tpu_torch.utils.png import read_png, write_png
 
 ALL_PHASES = ("device", "build", "kernel_dcn", "kernel_flash", "slice_small",
               "slice_small_blur", "slice_small_face", "slice_small_train",
-              "train_full", "train_full_blur", "slice_full",
+              "slice_small_interp", "train_full", "train_full_blur",
+              "interp_full", "davsr_full", "slice_full",
               "slice_full_gaussian", "slice_full_face", "detector", "cli")
 EXTRA_PHASES = ("profile_step",)
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -148,6 +167,12 @@ DCN_G = 16
 DCN_SHAPES = ((512, 128, 64), (256, 256, 128))   # (H=W, Cin, Cout), B=1
 DCN_TOL = 3e-2         # max abs error, bf16 kernel vs f32 plain, unit outputs
 DCN_TOL_REL = 1e-2     # the same over the largest |output|: bf16 rounding
+# K1 at DAVSRNet's alignments (davsr_full): float32, (H=W, Cin, Cout, G, M),
+# timed; max abs / max rel (over the largest |output|) error against the f32
+# plain twin, which sums the 9·Cin products in another order: 1e-5 of the
+# largest output, whose magnitude is about 2 here, so 2e-5 abs
+DCN_F32_ROW = (256, 128, 64, 8, 10.0)
+DCN_F32_TOL = (2e-5, 1e-5)
 # correctness-only K1 rows, bf16: (B, H, W, Cin, Cout, G, raw as views of one
 # tensor, flow amplitude in px, M). Pixel counts and widths that no 128-pixel
 # tile divides, Cin/G = 8 / 16 / 24 (groups straddle a 32-channel chunk) / 32,
@@ -201,6 +226,19 @@ BLUR_STEPS = 2
 # slice_small_blur's SuperResModel / EncoderUNetModel rows: max abs error
 # over the largest |output|, cuda (TF32 off) vs cpu, f32
 SMALL_MODEL_TOL = 1e-5
+# slice_small_interp: the CPU tests' SuperSloMo / tiny AMT / small DAVSRNet
+# (tests/test_torch_{superslomo,amt,davsr}.py) and their tolerances, cuda
+# (TF32 off) vs cpu: max abs for the interpolators' frames, max abs over
+# the largest |output| for DAVSRNet
+SMALL_AMT = dict(channels=(16, 24, 32, 48), skip_channels=16, num_flows=2,
+                 corr_lvls=2, corr_radius=2)
+SMALL_DAVSR = dict(n_iter=2, h_nc=8, mid_channels=32, num_blocks=1,
+                   sf=(2, 2, 2), deform_groups=2)
+INTERP_TOL = {"superslomo": 1e-5, "amt": 1e-4, "davsr": 1e-4}
+# interp_full: one pair at this size, factor 2; davsr_full: a clip of
+# DAVSR_T frames at DAVSR_SIZE² (→ 5·DAVSR_T frames at 4·DAVSR_SIZE²)
+INTERP_SIZE = 512
+DAVSR_T, DAVSR_SIZE = 3, 64
 FULL_STEPS = "ddim25"
 SLEEP_CYCLES_PER_CALL = 400_000   # ~0.2 ms at the H100's SM clock
 DCN_PER_STEP = {"slice_full": 108, "slice_full_gaussian": 180,
@@ -343,11 +381,11 @@ def phase_build(ctx):
 
 
 def dcn_inputs(h, cin, cout, seed, device, b=1, w=None, g=DCN_G, amp=3.0,
-               views=True):
+               views=True, dtype=torch.bfloat16):
     """Raw DCN inputs, main-path-shaped by default: smooth flows of ``amp``
-    pixels plus tanh residues, bf16 x and raw blocks, seeded. The raw blocks
-    are views of one NHWC tensor, as vsrpp gives them, or with ``views``
-    False three contiguous tensors."""
+    pixels plus tanh residues, x and raw blocks in ``dtype``, seeded. The raw
+    blocks are views of one NHWC tensor, as vsrpp gives them, or with
+    ``views`` False three contiguous tensors."""
     gen = torch.Generator(device=device).manual_seed(seed)
     w = w or h
 
@@ -362,7 +400,7 @@ def dcn_inputs(h, cin, cout, seed, device, b=1, w=None, g=DCN_G, amp=3.0,
         b, h, w, a).contiguous()
     flow_x = (amp * torch.cos(2 * math.pi * (yy - 2 * xx) + ph)).expand(
         b, h, w, a).contiguous()
-    bf = torch.bfloat16
+    bf = dtype
     x = randn(b, h, w, cin).to(bf)
     if views:
         raw = randn(b, h, w, 3 * gk).to(bf)
@@ -375,14 +413,17 @@ def dcn_inputs(h, cin, cout, seed, device, b=1, w=None, g=DCN_G, amp=3.0,
     return x, res_y, res_x, mlog, flow_y, flow_x, weight, bias
 
 
-def dcn_bound_ms(h, cin, cout, x_bytes):
+def dcn_bound_ms(h, cin, cout, x_bytes, g=DCN_G, peak=PEAK_BF16):
+    """x, the three raw blocks, both flow planes and the output in the
+    kernel's dtype (``x_bytes``), W and bias read once; 2·H·W·9·Cin·Cout
+    FLOP at ``peak``."""
     px = h * h
-    gk = DCN_G * 9
+    gk = g * 9
     nbytes = (px * cin * x_bytes + 3 * px * gk * x_bytes + 2 * px * 2 * 4
               + px * cout * x_bytes + 9 * cin * cout * 4 + cout * 4)
     flops = 2.0 * px * 9 * cin * cout
     t_bytes = nbytes / MEM_BW * 1e3
-    t_ops = flops / PEAK_BF16 * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations"), nbytes, flops
 
@@ -405,6 +446,7 @@ def dcn_error(args, mrm):
 
 def phase_kernel_dcn(ctx):
     """K1 at the main-path shapes, timed beside its plain twin, then the
+    float32 row at DAVSRNet's shape (DCN_F32_ROW), timed, then the
     DCN_EDGE rows, checked only."""
     dev = torch.device("cuda")
     rows = []
@@ -430,6 +472,27 @@ def phase_kernel_dcn(ctx):
                 raise AssertionError(
                     f"dcn kernel disagrees at {row['shape']} M={mrm}: "
                     f"abs {err} (tol {DCN_TOL}), rel {rel} (tol {DCN_TOL_REL})")
+    h, cin, cout, g, mrm = DCN_F32_ROW
+    args = dcn_inputs(h, cin, cout, seed=300, device=dev, g=g,
+                      dtype=torch.float32)
+    err, rel = dcn_error(args, mrm)
+    saved = deform_conv2d_raw.launches
+    ms = cuda_ms(lambda: deform_conv2d_raw(*args, mrm), reps=5)
+    plain_ms = cuda_ms(lambda: deform_conv2d_raw_plain(*args, mrm), reps=3,
+                       warmup=1, batches=1)
+    deform_conv2d_raw.launches = saved
+    bound, by, nbytes, flops = dcn_bound_ms(h, cin, cout, 4, g, PEAK_F32)
+    row = {"shape": f"x(1,{h},{h},{cin})->{cout}", "dtype": "float32",
+           "G": g, "mrm": mrm, "max_abs_err": err, "max_rel_err": rel,
+           "tol_abs": DCN_F32_TOL[0], "tol_rel": DCN_F32_TOL[1], "ms": ms,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+           "bytes": nbytes, "flop": flops, "tflops": flops / ms / 1e9,
+           "card": ctx["smi"]}
+    emit({"phase": "kernel_dcn", **row})
+    rows.append(row)
+    if not (err <= DCN_F32_TOL[0] and rel <= DCN_F32_TOL[1]):
+        raise AssertionError(f"dcn kernel (f32, G={g}) disagrees at "
+                             f"{row['shape']}: abs {err}, rel {rel}")
     for i, (b, h, w, cin, cout, g, views, amp, mrm) in enumerate(DCN_EDGE):
         args = dcn_inputs(h, cin, cout, seed=400 + i, device=dev, b=b, w=w,
                           g=g, amp=amp, views=views)
@@ -1287,6 +1350,97 @@ def train_full_remat(ctx):
     if not (launches == expect and warm[2] == expect and not bad
             and np.isfinite(rec["loss"])):
         raise AssertionError(f"train_full (remat) failed its checks: {rec}")
+    train_full_skip(ctx)
+
+
+class TimedInterpolator:
+    """An ``interpolate(f0, f1, skip)`` callable that records CUDA events
+    around each call; ``ms()`` gives each call's time."""
+
+    def __init__(self, fn):
+        self.fn, self.events = fn, []
+
+    def __call__(self, f0, f1, skip):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out = self.fn(f0, f1, skip)
+        ev[1].record()
+        self.events.append(ev)
+        return out
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return [s.elapsed_time(e) for s, e in self.events]
+
+
+def train_full_skip(ctx):
+    """train_full's third row: the remat row's x8 model at T = REMAT_T with
+    ``skip = 2``: ``low_res_input`` holds every other frame of the clip
+    (3 at 512²) and AMT-G (registry defaults, f32, seeded random weights at
+    0.02, ``amt.make_interpolator``) densifies it to REMAT_T inside
+    ``TrainRunner``. A warm-up and one timed step: AMT's ms within the
+    step (CUDA events), peak, K1 launches (AMT launches none), every UNet
+    gradient finite and non-zero; no AMT parameter with a gradient, in the
+    optimizer state or in the EMA stream, and AMT's weights unchanged."""
+    dev = torch.device("cuda")
+    torch.cuda.empty_cache()
+    held_gib = torch.cuda.memory_allocated() / 2 ** 30
+    model = get_model("bicubic_unet", dtype=torch.bfloat16,
+                      use_checkpoint=True)
+    model.random_init(seed=0, scale=0.02)
+    amt = get_model("amt")
+    random_init_(amt, seed=3, scale=0.02)
+    amt.to(dev)
+    amt_before = [p.detach().clone() for p in amt.parameters()]
+    interp = TimedInterpolator(make_interpolator(amt))
+    d = x8_train_diffusion(dev)
+    cfg = TrainConfig(lr=TRAIN_LR, ema_rates=(0.9999,))
+    batch, _ = x8_train_batch(REMAT_T, dev)
+    batch["low_res_input"] = batch["low_res_input"][:, ::2].contiguous()
+    expect = {"dcn_raw": 2 * 2 * (REMAT_T - 1) * dcn_sites(model),
+              "flash_attn": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        train_log.configure(os.path.join(tmp, "log"), format_strs=["json"])
+        runner = TrainRunner(d, wrap_bicubic_train(d, model), cfg, model,
+                             ckpt_dir=tmp, device=dev, log_interval=10 ** 9,
+                             save_interval=10 ** 9, skip=2,
+                             interpolate=interp)
+        warm = timed_step(runner, batch)
+        torch.cuda.reset_peak_memory_stats()
+        host, ms, launches = timed_step(runner, batch)
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        bad = bad_gradients(host.pop("grads"))
+        amt_ids = {id(p) for p in amt.parameters()}
+        st = runner.state
+        in_state = sum(id(v) in amt_ids for stream in (
+            st.params, st.opt_state.mu, st.opt_state.nu, *st.ema_params)
+            for v in stream.values())
+        del runner, host
+    amt_ms = interp.ms()
+    amt_grads = sum(p.grad is not None for p in amt.parameters())
+    amt_same = all(torch.equal(p, q) for p, q in zip(amt.parameters(),
+                                                     amt_before))
+    rec = {"phase": "train_full", "row": "skip",
+           "model": "bicubic_unet (registry defaults, use_checkpoint) + amt "
+                    "(AMT-G, f32)",
+           "batch": [1, REMAT_T, 512, 512, 3], "low_res_frames": 3,
+           "skip": 2, "warmup_ms": warm[1], "ms_per_step": ms,
+           "amt_ms": amt_ms[-1], "amt_ms_warmup": amt_ms[0],
+           "amt_share": amt_ms[-1] / ms, "peak_gib": peak,
+           "launches_per_step": [warm[2], launches],
+           "launches_expected": expect, "loss": float(warm[0]["loss"]),
+           "params_without_gradient": bad, "amt_params_with_grad": amt_grads,
+           "amt_params_in_train_state": in_state,
+           "amt_unchanged": amt_same, "allocated_before_gib": held_gib,
+           "card": ctx["smi"]}
+    emit(rec)
+    ctx["launches"]["train_full_skip"] = launches
+    del model, amt, amt_before
+    torch.cuda.empty_cache()
+    if not (launches == expect and warm[2] == expect and not bad
+            and np.isfinite(rec["loss"]) and len(amt_ms) == 2
+            and amt_grads == 0 and in_state == 0 and amt_same):
+        raise AssertionError(f"train_full (skip) failed its checks: {rec}")
 
 
 def phase_train_full_blur(ctx):
@@ -1371,6 +1525,172 @@ def phase_train_full_blur(ctx):
     finite = all(np.isfinite(v) for v in losses + norms)
     if not (finite and not bad and all(n == expect for n in launches)):
         raise AssertionError(f"train_full_blur failed its checks: {rec}")
+
+
+def moving_clip(frames, size, device, shift=2.0, seed=0):
+    """(1, frames, size, size, 3) in [0.05, 0.95]: a smooth seeded pattern
+    moving ``shift`` pixels a frame, made on ``device``."""
+    gen = torch.Generator().manual_seed(seed)
+    ph = torch.rand(3, generator=gen) * 6.28
+    fr = 0.1 + 0.3 * torch.rand(3, 2, generator=gen)
+    yy = torch.arange(size, dtype=torch.float32).view(1, size, 1, 1)
+    xx = torch.arange(size, dtype=torch.float32).view(1, 1, size, 1)
+    t = torch.arange(frames, dtype=torch.float32).view(frames, 1, 1, 1)
+    v = torch.sin(fr[:, 0] * yy + fr[:, 1] * (xx - shift * t) + ph)
+    return (0.5 + 0.45 * v)[None].to(device)
+
+
+def phase_slice_small_interp(ctx):
+    """The CPU tests' SuperSloMo (factor 3, 32²), tiny AMT (``interpolate``
+    at factor 2 on a 24×40 pair: the 16-padding) and small DAVSRNet (2
+    frames at 32² → 4 at 64²; K1 f32 with 2 groups at each of its 12
+    alignments), f32 with seeded random weights, on cuda (TF32 off) against
+    cpu on the same inputs."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    clip = moving_clip(2, 32, "cpu")
+    pair24 = moving_clip(2, 40, "cpu")[:, :, :24] * 2 - 1
+    torch.manual_seed(0)
+    models = {"superslomo": SuperSloMo(factor=3),
+              "amt": get_model("amt", **SMALL_AMT),
+              "davsr": get_model("davsr", **SMALL_DAVSR)}
+    random_init_(models["davsr"], seed=1, scale=0.02)
+    calls = {"superslomo": lambda m, dev: m(clip[:, 0].to(dev) * 2 - 1,
+                                           clip[:, 1].to(dev) * 2 - 1),
+             "amt": lambda m, dev: interpolate(m, pair24[:, 0].to(dev),
+                                               pair24[:, 1].to(dev), 2),
+             "davsr": lambda m, dev: m(clip.to(dev))}
+    expect = {"superslomo": 0, "amt": 0, "davsr": 2 * 3 * 2}
+    failed = []
+    for name, model in models.items():
+        model.eval()
+        with torch.no_grad():
+            ref = calls[name](model, "cpu")
+            saved = deform_conv2d_raw.launches
+            deform_conv2d_raw.launches = 0
+            out = calls[name](model.to("cuda"), "cuda")
+            torch.cuda.synchronize()
+            launches = deform_conv2d_raw.launches
+            deform_conv2d_raw.launches = saved
+        err = (out.cpu() - ref).abs().max().item()
+        if name == "davsr":
+            err /= ref.abs().max().item()
+        rec = {"phase": "slice_small_interp", "model": name,
+               "shape": list(out.shape), "err_cuda_vs_cpu": err,
+               "err_kind": "max rel" if name == "davsr" else "max abs",
+               "tol": INTERP_TOL[name], "dcn_launches": launches,
+               "dcn_launches_expected": expect[name]}
+        emit(rec)
+        if not (err <= INTERP_TOL[name] and launches == expect[name]):
+            failed.append(name)
+    torch.backends.cudnn.allow_tf32 = True
+    if failed:
+        raise AssertionError(f"slice_small_interp failed: {failed}")
+
+
+def peak_ms(fn, reps=2):
+    """``fn()`` once with the peak memory counter reset (returns its output
+    and the peak in GiB), then its device time (``cuda_ms``)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out = fn()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        ms = cuda_ms(fn, reps=reps, warmup=0, batches=3)
+    return out, peak, ms
+
+
+def phase_interp_full(ctx):
+    """AMT-G (registry defaults) and SuperSloMo (defaults), f32, seeded
+    random weights at 0.02, on one INTERP_SIZE² pair in 2-px motion:
+    ``interpolate`` / the model at factor 2. ms a call (CUDA events), peak
+    memory, every output finite."""
+    dev = torch.device("cuda")
+    pair = moving_clip(2, INTERP_SIZE, dev) * 2 - 1
+    f0, f1 = pair[:, 0], pair[:, 1]
+    models = {"amt": get_model("amt"), "superslomo": get_model("superslomo")}
+    for i, m in enumerate(models.values()):
+        random_init_(m, seed=10 + i, scale=0.02)
+        m.to(dev).eval()
+    runs = {"amt": functools.partial(interpolate, models["amt"], f0, f1, 2),
+            "superslomo": functools.partial(models["superslomo"], f0, f1)}
+    bad = []
+    for name, fn in runs.items():
+        deform_conv2d_raw.launches = flash_attention.launches = 0
+        out, peak, ms = peak_ms(fn)
+        rec = {"phase": "interp_full", "model": f"{name} (registry "
+               "defaults, f32)", "params_m": sum(
+                   p.numel() for p in models[name].parameters()) / 1e6,
+               "input": [1, INTERP_SIZE, INTERP_SIZE, 3], "factor": 2,
+               "shape": list(out.shape),
+               "finite": bool(torch.isfinite(out).all()),
+               "ms_per_call": ms, "peak_gib": peak,
+               "kernel_launches": deform_conv2d_raw.launches
+               + flash_attention.launches, "card": ctx["smi"]}
+        emit(rec)
+        if not (rec["finite"] and rec["shape"] == [1, 1, INTERP_SIZE,
+                                                   INTERP_SIZE, 3]):
+            bad.append(name)
+    if ctx["profile"]:      # kept for profile_step
+        ctx.setdefault("video_calls", {}).update(
+            {f"{k}_{INTERP_SIZE}": v for k, v in runs.items()})
+    del models, runs, m, fn, out
+    torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"interp_full failed: {bad}")
+
+
+def phase_davsr_full(ctx):
+    """DAVSRNet at the registry defaults (n_iter 4, h_nc 64, 64 channels,
+    5 blocks, sf (5, 4, 4), G = 8), f32, seeded random weights at 0.02, on a
+    DAVSR_T-frame DAVSR_SIZE² clip in motion: the K1 count set to 0 just
+    before one forward and read just after, held to 2 branches ×
+    (5·DAVSR_T − 1) frames × n_iter; then ms a forward (CUDA events), peak,
+    the output finite; K1's share from kernel_dcn's f32 row."""
+    dev = torch.device("cuda")
+    model = get_model("davsr")
+    random_init_(model, seed=20, scale=0.02)
+    model.to(dev).eval()
+    clip = moving_clip(DAVSR_T, DAVSR_SIZE, dev)
+    s0 = model.sf[0]
+    expect = {"dcn_raw": 2 * (s0 * DAVSR_T - 1) * model.n_iter,
+              "flash_attn": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    deform_conv2d_raw.launches = flash_attention.launches = 0
+    with torch.no_grad():
+        out = model(clip)
+        torch.cuda.synchronize()
+    launches = {"dcn_raw": deform_conv2d_raw.launches,
+                "flash_attn": flash_attention.launches}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    saved = deform_conv2d_raw.launches
+    with torch.no_grad():
+        ms = cuda_ms(lambda: model(clip), reps=1, warmup=0, batches=3)
+    deform_conv2d_raw.launches = saved      # timing runs do not count
+    h = DAVSR_SIZE * model.sf[1]
+    rec = {"phase": "davsr_full", "model": "davsr (registry defaults, f32)",
+           "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
+           "input": list(clip.shape), "shape": list(out.shape),
+           "finite": bool(torch.isfinite(out).all()),
+           "min": float(out.min()), "max": float(out.max()),
+           "ms_per_forward": ms, "peak_gib": peak, "launches": launches,
+           "launches_expected": expect, "card": ctx["smi"]}
+    f32 = [r for r in ctx.get("dcn_rows", ()) if r.get("dtype") == "float32"]
+    if f32:
+        rec["dcn_ms_per_forward"] = f32[0]["ms"] * launches["dcn_raw"]
+        rec["dcn_share"] = rec["dcn_ms_per_forward"] / ms
+    emit(rec)
+    ctx.setdefault("launches", {})["davsr_full"] = launches
+    if ctx["profile"]:      # kept for profile_step
+        ctx.setdefault("video_calls", {})["davsr"] = functools.partial(
+            model, clip)
+    del model
+    torch.cuda.empty_cache()
+    if not (rec["finite"] and launches == expect
+            and rec["shape"] == [1, s0 * DAVSR_T, h, h, 3]):
+        raise AssertionError(f"davsr_full failed its checks: {rec}")
 
 
 def run_full(ctx, name, task, model, make_apply, clip, face=None):
@@ -1702,6 +2022,7 @@ KERNEL_CLASSES = (   # first match wins, on the lower-cased kernel name
     ("softmax", ("softmax",)),
     ("reduction / norm", ("reduce", "norm", "welford")),
     ("cat / copy", ("cat", "copy")),
+    ("fft", ("fft",)),
     ("elementwise", ("elementwise",)),
 )
 
@@ -1746,11 +2067,14 @@ def profile_call(ctx, path, call):
 
 
 def phase_profile_step(ctx):
-    """One denoiser call of each full-width model at a window's shape, and
-    one face call of slice_full_face (10 faces at 512²), under
-    torch.profiler (``profile_call``)."""
+    """One denoiser call of each full-width model at a window's shape, one
+    face call of slice_full_face (10 faces at 512²), and one call of each
+    model interp_full and davsr_full ran, under torch.profiler
+    (``profile_call``)."""
     dev = torch.device("cuda")
-    for name, (task, model, model_apply, clip) in ctx["full"].items():
+    for name, call in ctx.get("video_calls", {}).items():
+        profile_call(ctx, name, call)
+    for name, (task, model, model_apply, clip) in ctx.get("full", {}).items():
         cfg = TASK_CONFIGS[task]
         frames = torch.as_tensor(clip[None, :10], device=dev)
         init = init_from_degraded(frames, cfg)
@@ -1803,7 +2127,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    ctx: dict = {}
+    ctx: dict = {"profile": "profile_step" in phases}
     for name in ["device"] + [p for p in phases if p != "device"]:
         globals()[f"phase_{name}"](ctx)
     launches = {"dcn_raw": {}, "flash_attn": {}}

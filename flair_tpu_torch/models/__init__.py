@@ -1,4 +1,5 @@
-"""BicubicUNet, BlurUNet, SPyNet, BasicVSR++ and their blocks, and the face
-models CodeFormer and ParseNet (torch.nn)."""
+"""BicubicUNet, BlurUNet, SPyNet, BasicVSR++ and their blocks, the face
+models CodeFormer and ParseNet, and the video models SuperSloMo, AMT and
+DAVSRNet (torch.nn)."""
 
 from .registry import get_model, list_models, register_model

@@ -3,7 +3,8 @@
 Counterpart of ``flair_tpu/models/registry.py``; this package registers
 ``bicubic_unet``, ``blur_unet``, ``superres_unet``, ``encoder_unet``,
 ``spynet``, ``basicvsrpp``, ``codeformer``,
-``vqautoencoder``, ``parsenet`` and ``retinaface``."""
+``vqautoencoder``, ``parsenet``, ``retinaface``, and the video models
+``superslomo``, ``amt`` and ``davsr``."""
 
 from __future__ import annotations
 
@@ -36,5 +37,5 @@ def list_models():
 
 
 def _register_all():
-    from . import (adm, codeformer, parsenet, retinaface, sr3,  # noqa: F401
-                   spynet, vsrpp)
+    from . import (adm, amt, codeformer, davsr, parsenet,  # noqa: F401
+                   retinaface, spynet, sr3, superslomo, vsrpp)

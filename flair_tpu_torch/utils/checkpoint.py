@@ -30,12 +30,16 @@ from . import convert
 from .convert import t2j_conv2d, t2j_conv3d, t2j_linear  # noqa: F401
 
 UPSTREAM = {
+    "amt": convert.convert_amt,
     "bicubic_unet": convert.convert_bicubic_unet,
     "blur_unet": convert.convert_blur_unet,
     "codeformer": convert.convert_codeformer,
+    # the auxiliary nets only: the map leaves the regularizer out
+    "davsr": convert.convert_davsr_aux,
     "parsenet": convert.convert_parsenet,
     "retinaface": convert.convert_retinaface,
     "spynet": convert.convert_spynet,
+    "superslomo": convert.convert_superslomo,
 }
 
 

@@ -17,7 +17,10 @@ transposes. Input is the flat flax dict — the format of
 - norm ``scale`` → ``weight``;
 - the ``batch_stats/`` collection (ParseNet's BatchNorm) → the buffers
   ``running_mean`` / ``running_var``;
-- the deformable alignment's ``weight`` (HWIO) → OIHW.
+- the deformable alignment's ``weight`` (HWIO) → OIHW;
+- AMT's ``UpConv`` kernels (flax ``ConvTranspose`` under the scope
+  ``deconv``, (kh, kw, in, out) correlated unflipped) → torch's
+  ``ConvTranspose2d`` layout (in, out, kh, kw) with the taps reversed.
 
 ``offset_out`` stays in the reference channel order; the model permutes it
 when applied (``models/vsrpp.py::_offset_perm``).
@@ -43,6 +46,10 @@ _BATCH_STATS = {"mean": "running_mean", "var": "running_var"}
 
 
 def _convert_leaf(name: str, arr: np.ndarray, scope: str):
+    if name == "kernel" and scope == "deconv":
+        # flax ConvTranspose correlates an unflipped (kh, kw, in, out)
+        # kernel; torch's conv_transpose2d takes (in, out, kh, kw) flipped
+        return "weight", arr[::-1, ::-1].transpose(2, 3, 0, 1)
     if name == "kernel" and arr.ndim == 3:
         if scope == "out":
             return "weight", arr.reshape(-1, arr.shape[-1]).T
@@ -175,6 +182,13 @@ def t2j_linear(w: np.ndarray) -> np.ndarray:
     return np.transpose(w)
 
 
+def t2j_convtranspose2d(w: np.ndarray) -> np.ndarray:
+    """torch ConvTranspose2d (in, out, kh, kw) → flax ConvTranspose
+    (kh, kw, in, out), taps reversed: flax correlates the kernel
+    unflipped."""
+    return np.ascontiguousarray(w.transpose(2, 3, 0, 1)[::-1, ::-1])
+
+
 # upstream layout → flax layout, by name; ``heads`` splits a (3E, E) /
 # (E, E) attention projection into flax's per-head DenseGeneral kernels
 LAYOUTS = {
@@ -184,6 +198,8 @@ LAYOUTS = {
     "linear": lambda w, heads: t2j_linear(w),
     "conv1x1_dense": lambda w, heads: w[:, :, 0, 0].T,   # 1×1 Conv2d
     "conv1d_dense": lambda w, heads: w[:, :, 0].T,       # 1-wide Conv1d
+    "conv3d_dense": lambda w, heads: w.reshape(w.shape[:2]).T,  # 1×1×1 Conv3d
+    "convtranspose": lambda w, heads: t2j_convtranspose2d(w),
     "heads_in": lambda w, heads: w.T.reshape(w.shape[1], heads, -1),
     "heads_out": lambda w, heads: w.T.reshape(heads, -1, w.shape[0]),
     "heads_bias": lambda w, heads: w.reshape(heads, -1),
@@ -757,4 +773,117 @@ def convert_retinaface(s: Mapping[str, np.ndarray], *,
     → the port's ``RetinaFace`` state_dict."""
     r = UpstreamReader(s)
     retinaface_names(r, network=network)
+    return from_flax(r.flat)
+
+
+# SuperSloMo (superslomo.py:8-291) and DAVSRNet's auxiliary nets -----------
+
+
+def _ss_unet(r, t: str, j: str) -> None:
+    """One SuperSloMo UNet: conv1-3, down1-5 and up1-5 of two convs each."""
+    for cv in ("conv1", "conv2", "conv3"):
+        _conv(r, f"{t}.{cv}", f"{j}/{cv}")
+    for i in range(1, 6):
+        for cv in ("conv1", "conv2"):
+            _conv(r, f"{t}.down{i}.{cv}", f"{j}/down{i}/{cv}")
+            _conv(r, f"{t}.up{i}.{cv}", f"{j}/up{i}/{cv}")
+
+
+def superslomo_names(r) -> None:
+    """The SuperSloMo name map (flair_tpu convert_superslomo): the flow
+    UNet and the interpolation UNet (superslomo.py:217-221)."""
+    for net in ("flow_estimator", "interp"):
+        _ss_unet(r, net, net)
+
+
+def convert_superslomo(s: Mapping[str, np.ndarray]) -> dict:
+    """SuperSloMo weights → the port's ``SuperSloMo`` state_dict."""
+    r = UpstreamReader(s)
+    superslomo_names(r)
+    return from_flax(r.flat)
+
+
+def davsr_aux_names(r) -> None:
+    """The DAVSRNet auxiliary name map (flair_tpu convert_davsr_aux):
+    HyPaNet's 1×1×1 Conv3d MLP as Dense layers (davsr.py:1722-1744) and
+    the two SuperSloMo UNets (davsr.py:1788-1790). The BasicVSR++
+    regularizer is not mapped, as in the JAX package: the reference's own
+    upsamples 4× an iteration against fixed-size OTFs (davsr.py:1374-1380
+    inside :1914-1916)."""
+    for i, fc in ((0, "fc1"), (2, "fc2"), (4, "fc3")):
+        r.put(f"h.mlp.{i}.weight", f"hypanet/{fc}/kernel", "conv3d_dense")
+        r.put(f"h.mlp.{i}.bias", f"hypanet/{fc}/bias")
+    for net in ("flow", "interp"):
+        _ss_unet(r, net, net)
+
+
+def convert_davsr_aux(s: Mapping[str, np.ndarray]) -> dict:
+    """DAVSRNet's HyPaNet and SuperSloMo weights → the matching part of the
+    port's ``DAVSRNet`` state_dict (its ``vsr`` regularizer excluded)."""
+    r = UpstreamReader(s)
+    davsr_aux_names(r)
+    return from_flax(r.flat)
+
+
+# AMT (amt.py:44-111 + amt_blocks/*) -----------------------------------------
+
+
+def _amt_convrelu(r, t: str, j: str) -> None:
+    """ifrnet convrelu Sequential(Conv2d, PReLU) → ConvPReLU."""
+    _conv(r, f"{t}.0", f"{j}/conv")
+    r.put(f"{t}.1.weight", f"{j}/act/prelu")
+
+
+def _amt_resblock(r, t: str, j: str) -> None:
+    """ifrnet ResBlock: conv1-4 convrelu, conv5 plain, a trailing PReLU."""
+    for i in (1, 2, 3, 4):
+        _amt_convrelu(r, f"{t}.conv{i}", f"{j}/conv{i}")
+    _conv(r, f"{t}.conv5", f"{j}/conv5")
+    r.put(f"{t}.prelu.weight", f"{j}/prelu/prelu")
+
+
+def amt_names(r) -> None:
+    """The AMT name map (flair_tpu convert_amt; the released amt-l / amt-g
+    layout): RAFT feature encoder (instance norms carry no weights), the
+    IFRNet pyramid, the four decoders (convrelu, ResBlock, deconv), the
+    five update blocks and the combination head."""
+    _conv(r, "feat_encoder.conv1", "feat_encoder/conv1")
+    _conv(r, "feat_encoder.conv2", "feat_encoder/conv2")
+    for i, lname in enumerate(("layer1", "layer2", "layer3", "layer3_2")):
+        for bi in range(2):
+            t = f"feat_encoder.{lname}.{bi}"
+            j = f"feat_encoder/layer{i}_{bi}"
+            _conv(r, f"{t}.conv1", f"{j}/conv1")
+            _conv(r, f"{t}.conv2", f"{j}/conv2")
+            if r.has(f"{t}.downsample.0.weight", f"{j}/downsample/kernel"):
+                _conv(r, f"{t}.downsample.0", f"{j}/downsample")
+    for idx in range(4):
+        for sub in range(2):
+            _amt_convrelu(r, f"encoder.pyramid{idx + 1}.{sub}",
+                          f"encoder/pyr{idx}_{sub}")
+    for k in (4, 3, 2, 1):
+        t, j = f"decoder{k}.convblock", f"decoder{k}"
+        _amt_convrelu(r, f"{t}.0", f"{j}/conv_in")
+        _amt_resblock(r, f"{t}.1", f"{j}/res")
+        r.put(f"{t}.2.weight", f"{j}/up/deconv/kernel", "convtranspose")
+        r.put(f"{t}.2.bias", f"{j}/up/deconv/bias")
+    for u in ("update4", "update3_low", "update3_high", "update2_low",
+              "update2_high"):
+        for cv in ("convc1", "convc2", "convf1", "convf2", "conv"):
+            _conv(r, f"{u}.{cv}", f"{u}/{cv}")
+        for tseq, (j1, j2) in (("gru", ("gru1", "gru2")),
+                               ("feat_head", ("feat1", "feat2")),
+                               ("flow_head", ("flow1", "flow2"))):
+            _conv(r, f"{u}.{tseq}.0", f"{u}/{j1}")
+            _conv(r, f"{u}.{tseq}.2", f"{u}/{j2}")
+    _conv(r, "comb_block.0", "comb0/conv")
+    r.put("comb_block.1.weight", "comb0/act/prelu")
+    _conv(r, "comb_block.2", "comb1")
+
+
+def convert_amt(s: Mapping[str, np.ndarray]) -> dict:
+    """AMT interpolator weights (amt.py:44-111) → the port's ``AMT``
+    state_dict."""
+    r = UpstreamReader(s)
+    amt_names(r)
     return from_flax(r.flat)

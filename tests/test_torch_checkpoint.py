@@ -2,7 +2,8 @@
 
 - For each model ``load_params`` takes from an upstream torch checkpoint
   (SPyNet, BicubicUNet, BlurUNet, CodeFormer, ParseNet, RetinaFace with
-  both bodies), at a small configuration: an upstream-named state dict is
+  both bodies, SuperSloMo, AMT, DAVSRNet's HyPaNet and SuperSloMo UNets),
+  at a small configuration: an upstream-named state dict is
   built here from the flax model's variables by running the port's name
   map backwards. The JAX package's ``convert_<model>`` must rebuild
   exactly those variables from it, and the port's ``convert_<model>``
@@ -26,6 +27,7 @@ import jax
 import jax.numpy as jnp
 
 from flair_tpu.utils import convert as jconvert
+from flax_init import random_flax_params
 from flair_tpu.utils.checkpoint import flatten_params, unflatten_params
 from flair_tpu_torch.utils import checkpoint as tckpt
 from flair_tpu_torch.utils import convert as tconvert
@@ -41,6 +43,8 @@ INVERSE = {
     "linear": lambda a, heads: a.T,
     "conv1x1_dense": lambda a, heads: a.T[:, :, None, None],
     "conv1d_dense": lambda a, heads: a.T[:, :, None],
+    "conv3d_dense": lambda a, heads: a.T[:, :, None, None, None],
+    "convtranspose": lambda a, heads: a[::-1, ::-1].transpose(2, 3, 0, 1),
     "heads_in": lambda a, heads: a.reshape(a.shape[0], -1).T,
     "heads_out": lambda a, heads: a.reshape(-1, a.shape[-1]).T,
     "heads_bias": lambda a, heads: a.reshape(-1),
@@ -232,6 +236,60 @@ def case_retinaface(network):
             dict(network=network), None)
 
 
+def case_superslomo():
+    from flair_tpu.models.superslomo import SuperSloMo as J
+    from flair_tpu_torch.models.superslomo import SuperSloMo as T
+
+    f0, f1 = uniform(17, 1, 32, 32, 3), uniform(18, 1, 32, 32, 3)
+    jm = J()
+    flat = random_flax_params(jm, 19, f0, f1)
+    j_out = np.asarray(jax.jit(jm.apply)(unflatten_params(flat), f0, f1))
+    return (flat, j_out, T(),
+            lambda m: m(torch.from_numpy(f0), torch.from_numpy(f1)).numpy(),
+            "superslomo", {}, None)
+
+
+def case_amt():
+    from flair_tpu.models.amt import AMT as J
+    from flair_tpu_torch.models.amt import AMT as T
+
+    kw = dict(channels=(16, 24, 32, 48), skip_channels=16, num_flows=2,
+              corr_lvls=2, corr_radius=2)
+    i0, i1 = uniform(20, 1, 32, 32, 3, lo=0.0), uniform(21, 1, 32, 32, 3,
+                                                         lo=0.0)
+    embt = np.array([0.5], np.float32)
+    jm = J(**kw)
+    flat = random_flax_params(jm, 22, i0, i1, embt)
+    j_out = np.asarray(jax.jit(jm.apply)(unflatten_params(flat), i0, i1,
+                                         embt))
+    return (flat, j_out, T(**kw),
+            lambda m: m(*map(torch.from_numpy, (i0, i1, embt))).numpy(),
+            "amt", {}, None)
+
+
+def case_davsr_aux():
+    """HyPaNet and the SuperSloMo UNets: the part of DAVSRNet the map
+    covers, run up to its first prox (the regularizer is left out of the
+    map, and of the port's model here)."""
+    from flair_tpu.models.davsr import DAVSRNet as J
+    from flair_tpu_torch.models.davsr import DAVSRNet as T
+
+    kw = dict(n_iter=2, h_nc=8, mid_channels=32, num_blocks=1, sf=(2, 2, 2),
+              deform_groups=2)
+    x = uniform(23, 1, 2, 32, 32, 3, lo=0.0)
+    jm = J(**kw)
+    flat = random_flax_params(jm, 24, x, return_after_first_prox=True)
+    j_out = np.asarray(jax.jit(lambda p, v: jm.apply(
+        p, v, return_after_first_prox=True))(unflatten_params(flat), x))
+    model = T(**kw)
+    del model.vsr
+
+    def fwd(m):
+        return m(torch.from_numpy(x), return_after_first_prox=True).numpy()
+
+    return flat, j_out, model, fwd, "davsr_aux", {}, None
+
+
 CASES = {
     "spynet": case_spynet,
     "bicubic_unet": case_bicubic_unet,
@@ -240,7 +298,12 @@ CASES = {
     "parsenet": case_parsenet,
     "retinaface_mobile0.25": lambda: case_retinaface("mobile0.25"),
     "retinaface_resnet50": lambda: case_retinaface("resnet50"),
+    "superslomo": case_superslomo,
+    "amt": case_amt,
+    "davsr_aux": case_davsr_aux,
 }
+# the registry model whose checkpoints a map reads, where the names differ
+MODEL_NAMES = {"davsr_aux": "davsr"}
 NAME_MAPS = {
     "spynet": tconvert.spynet_names,
     "bicubic_unet": tconvert.bicubic_unet_names,
@@ -248,6 +311,9 @@ NAME_MAPS = {
     "codeformer": tconvert.codeformer_names,
     "parsenet": tconvert.parsenet_names,
     "retinaface": tconvert.retinaface_names,
+    "superslomo": tconvert.superslomo_names,
+    "amt": tconvert.amt_names,
+    "davsr_aux": tconvert.davsr_aux_names,
 }
 
 
@@ -278,7 +344,7 @@ def test_upstream_map(case, tmp_path):
                                for k, v in state.items()}}, path)
     if config in ({}, {"network": "resnet50"}):
         # load_params converts at the released configuration only
-        loaded = tckpt.load_params(path, name)
+        loaded = tckpt.load_params(path, MODEL_NAMES.get(name, name))
         assert all(torch.equal(loaded[k], via[k]) for k in via)
     model.load_state_dict(ours, strict=True)
     with torch.no_grad():
@@ -299,7 +365,7 @@ def test_load_params_npz_and_errors(tmp_path):
     with pytest.raises(ValueError, match="flatten_params"):
         tckpt.load_params(str(tmp_path), "bicubic_unet")
     with pytest.raises(ValueError, match="no converter"):
-        tckpt.load_params(path, "superslomo")
+        tckpt.load_params(path, "basicvsrpp")
     # flatten / unflatten round trip, and the generic mapping helper
     tree = tckpt.unflatten_params(flat)
     assert tckpt.flatten_params(tree).keys() == flat.keys()
