@@ -3,7 +3,9 @@ each against its plain PyTorch version, and drives the port's main paths
 (x8_bicubic guided DDIM with the face prior on and off, gaussian) at full
 width on one card, then the entry point itself (``flair_tpu_torch.cli``,
 x8 with RetinaFace detection and jpeg, on PNG clips), training (with AMT
-densifying ``skip = 2`` clips), the frame interpolators and DAVSRNet.
+densifying ``skip = 2`` clips), the frame interpolators and DAVSRNet, and
+the alternative face models (VQFR, RestoreFormer, VQVAEGAN, BiSeNet,
+YOLOv5-face).
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases build,kernel_dcn,kernel_flash
@@ -86,10 +88,24 @@ Phases, one JSON line each (a record per shape for the kernels):
                25 with the face stack on (10 frames, 64²) and jpeg ... --no-face
                (10 frames, 128²); K1 / K2 launches held to the expected
                counts, 10 finite 512² PNGs read back per run
+  slice_small_priors  the CPU tests' VQFR (Predict and Nearest),
+               RestoreFormer, VQVAEGAN, BiSeNet, YOLOv5Face and the
+               yolov5n-face YOLOv5FromConfig (tests/test_torch_alt_priors.py,
+               tests/test_torch_face_parsers.py), seeded weights, and
+               SuperResolution's operators, f32 with TF32 off, cuda vs cpu:
+               equal codes (smallest top-2 margin printed), every output
+               within PRIOR_TOL of its largest |value|, no K1 / K2 launch
+  priors_full  vqfr, restoreformer, vqvaegan, bisenet and yolov5face at
+               their registry defaults, seeded random weights at 0.02, f32,
+               one PRIOR_SIZE² image: ms a forward (CUDA events, the median
+               of 5 after a warm-up), peak memory, outputs finite, no K1 /
+               K2 launch (the plain DCN in VQFR, plain attention), VQFR's
+               plain-DCN ms a forward, YOLOv5-face's host decode + NMS of
+               the PRIOR_DETS best-scoring anchors
   profile_step (only when asked for) one denoiser call of each full-width
                model, one face call, and one call of each interp_full /
-               davsr_full model, under torch.profiler: device time by
-               kernel and by class, idle share
+               davsr_full / priors_full model, under torch.profiler: device
+               time by kernel and by class, idle share
 
 Then, on the lines before the last: one {"kernels": [...]} record and the
 card as nvidia-smi names it. The last line is the {"ok": ...} record.
@@ -124,16 +140,23 @@ from flair_tpu_torch.diffusion import (
     make_task_diffusion, training_losses)
 from flair_tpu_torch.face.helper import FaceRestoreHelper, make_face_fn_p
 from flair_tpu_torch.models.adm import BlurUNet, EncoderUNetModel, SuperResModel
+from flair_tpu_torch.models import vqfr as vqfr_module
 from flair_tpu_torch.models.amt import interpolate, make_interpolator
+from flair_tpu_torch.models.bisenet import BiSeNet
 from flair_tpu_torch.models.blocks import AttentionBlock
 from flair_tpu_torch.models.codeformer import CodeFormer
 from flair_tpu_torch.models.common import random_init_
 from flair_tpu_torch.models.parsenet import ParseNet
 from flair_tpu_torch.models.registry import get_model
+from flair_tpu_torch.models.restoreformer import RestoreFormer, VQVAEGAN
 from flair_tpu_torch.models.retinaface import RetinaFace, RetinaFaceDetector
 from flair_tpu_torch.models.sr3 import BicubicUNet
 from flair_tpu_torch.models.superslomo import SuperSloMo
+from flair_tpu_torch.models.vqfr import VQFRv2
 from flair_tpu_torch.models.vsrpp import BasicVSRPP
+from flair_tpu_torch.models.yolov5face import (
+    YOLOV5N_FACE_CFG, YOLOv5Face, YOLOv5FromConfig, decode_predictions)
+from flair_tpu_torch.operators import SuperResolution
 from flair_tpu_torch.ops.attention import dot_product_attention, flash_attention
 from flair_tpu_torch.ops.dcn import deform_conv2d_raw
 from flair_tpu_torch.ops.deform import deform_conv2d_raw_plain
@@ -156,7 +179,8 @@ ALL_PHASES = ("device", "build", "kernel_dcn", "kernel_flash", "slice_small",
               "slice_small_blur", "slice_small_face", "slice_small_train",
               "slice_small_interp", "train_full", "train_full_blur",
               "interp_full", "davsr_full", "slice_full",
-              "slice_full_gaussian", "slice_full_face", "detector", "cli")
+              "slice_full_gaussian", "slice_full_face", "detector", "cli",
+              "slice_small_priors", "priors_full")
 EXTRA_PHASES = ("profile_step",)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MEM_BW = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
@@ -277,6 +301,26 @@ SMALL_CF = dict(dim_embd=64, n_head=4, n_layers=1, codebook_size=32,
                 ch_mult=(1, 2, 2))
 SMALL_PN = dict(in_size=64, out_size=64, min_feat_size=16, base_ch=16,
                 res_depth=1, ch_range=(16, 64))
+# slice_small_priors: the CPU tests' configurations
+# (tests/test_torch_alt_priors.py, tests/test_torch_face_parsers.py); max
+# abs error over the largest |output|, cuda (TF32 off) vs cpu
+SMALL_VQFR = dict(base_channels=32, channel_multipliers=(1, 2),
+                  num_enc_blocks=1, num_dec_blocks=1, code_dim=32,
+                  inpfeat_dim=8, num_code=16, deformable_groups=2)
+SMALL_RF = dict(n_embed=16, embed_dim=16, ch=32, ch_mult=(1, 2),
+                num_res_blocks=1, attn_resolutions=(16,), z_channels=16,
+                head_size=2, ex_multi_scale_num=1, resolution=32)
+SMALL_VQVAE = dict(n_embed=32, embed_dim=16, ch=32, ch_mult=(1, 2),
+                   num_res_blocks=1, attn_resolutions=(8,), z_channels=16,
+                   resolution=16)
+SMALL_YOLO = dict(width=8, depth=(1, 1, 1, 1))
+PRIOR_TOL = 1e-5
+# priors_full: one image at this size; YOLOv5-face's decode threshold is
+# set so that about this many anchors pass it (the 0.02 random weights
+# score every anchor near 0.25, in groups of equal scores, so a fixed
+# threshold passes none or nearly all of the 16 128)
+PRIOR_SIZE = 512
+PRIOR_DETS = 200
 
 
 def emit(rec: dict) -> None:
@@ -1693,6 +1737,274 @@ def phase_davsr_full(ctx):
         raise AssertionError(f"davsr_full failed its checks: {rec}")
 
 
+def fan_in_init_(model, seed):
+    """Seeded weights at the CPU tests' scales: kernels N(0, 1/fan_in)
+    (VQFR's DCN offset convs included, so the DCNs sample off the grid),
+    codebooks N(0, 1), norm scales 1 + N(0, 0.1²), biases N(0, 0.02²)."""
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, p in model.named_parameters():
+            v = torch.randn(p.shape, generator=gen)
+            if name.endswith("embedding"):
+                pass
+            elif p.ndim >= 2:
+                v /= math.sqrt(p[0].numel())
+            elif name.endswith("weight"):
+                v = 1.0 + 0.1 * v
+            else:
+                v *= 0.02
+            p.copy_(v)
+    return model.eval()
+
+
+def top2_margin(scores) -> float:
+    """The smallest gap between the best and second-best score of a row."""
+    top = torch.sort(scores.double().reshape(-1, scores.shape[-1]),
+                     dim=-1).values
+    return float((top[:, -1] - top[:, -2]).min())
+
+
+def nearest_margin(z, emb) -> float:
+    """``top2_margin`` of the negated squared distances of each latent
+    vector of ``z`` (B, C, H, W) to every code of ``emb``."""
+    flat = z.double().permute(0, 2, 3, 1).reshape(-1, emb.shape[1])
+    e = emb.double()
+    d = (flat ** 2).sum(-1, keepdim=True) + (e ** 2).sum(-1) - 2 * flat @ e.T
+    return top2_margin(-d)
+
+
+def prior_outputs(name, out):
+    """(named float outputs, code indices) of one small model's call."""
+    if name.startswith("vqfr"):
+        codes = out.get("quant_logit")
+        return ({k: v for k, v in out.items()},
+                None if codes is None else codes.argmax(-1))
+    if name in ("restoreformer", "vqvaegan"):
+        named = {"dec": out[0], "loss": out[1].reshape(1),
+                 "perplexity": out[2][0].reshape(1)}
+        if name == "restoreformer":
+            named.update({f"hs_{k}": v for k, v in out[3].items()})
+        return named, out[2][1]
+    return {f"map{i}": v for i, v in enumerate(out)}, None
+
+
+def phase_slice_small_priors(ctx):
+    """The CPU tests' VQFR (both code selection modes), RestoreFormer,
+    VQVAEGAN, BiSeNet, YOLOv5Face and yolov5n-face YOLOv5FromConfig, and
+    SuperResolution's operators: seeded weights (``fan_in_init_``), f32
+    with TF32 off, cuda against cpu on the same inputs. The codes must be
+    equal (the smallest top-2 margin is printed), every output within
+    PRIOR_TOL of its largest |value|, and no K1 / K2 launch."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    gen = torch.Generator().manual_seed(0)
+    x32 = torch.rand(1, 3, 32, 32, generator=gen) * 2 - 1
+    x16 = torch.rand(1, 3, 16, 16, generator=gen) * 2 - 1
+    x64 = torch.rand(1, 3, 64, 64, generator=gen)
+    cases = {
+        "vqfr_predict": (VQFRv2(**SMALL_VQFR), x32),
+        "vqfr_nearest": (VQFRv2(**SMALL_VQFR, code_selection_mode="Nearest"),
+                         x32),
+        "restoreformer": (RestoreFormer(**SMALL_RF), x32),
+        "vqvaegan": (VQVAEGAN(**SMALL_VQVAE), x16),
+        "bisenet": (BiSeNet(), x64),
+        "yolov5face": (YOLOv5Face(**SMALL_YOLO), x64),
+        "yolov5n": (YOLOv5FromConfig(YOLOV5N_FACE_CFG), x64)}
+    failed = []
+    for i, (name, (model, x)) in enumerate(cases.items()):
+        fan_in_init_(model, seed=i)
+        with torch.no_grad():
+            ref, ref_codes = prior_outputs(name, model(x))
+            if name == "vqfr_nearest":
+                ref_codes = model.quantizer(model.encoder(x))[2]
+            deform_conv2d_raw.launches = flash_attention.launches = 0
+            model.to("cuda")
+            out, codes = prior_outputs(name, model(x.cuda()))
+            if name == "vqfr_nearest":
+                codes = model.quantizer(model.encoder(x.cuda()))[2]
+            torch.cuda.synchronize()
+            launches = (deform_conv2d_raw.launches, flash_attention.launches)
+            margin = None
+            if name == "vqfr_predict":
+                margin = top2_margin(ref["quant_logit"])
+            elif name == "vqfr_nearest":
+                margin = nearest_margin(model.cpu().encoder(x),
+                                        model.quantizer.embedding)
+            elif name in ("restoreformer", "vqvaegan"):
+                model.cpu()
+                z = model.quant_conv(model.encoder(x)["out"])
+                margin = nearest_margin(z, model.quantize.embedding)
+        errs = {k: float((out[k].cpu() - v).abs().max()
+                         / v.abs().max().clamp_min(1e-30))
+                for k, v in ref.items()}
+        worst = max(errs, key=errs.get)
+        rec = {"phase": "slice_small_priors", "model": name,
+               "input": list(x.shape), "outputs": len(errs),
+               "max_rel_err_cuda_vs_cpu": errs[worst], "worst_output": worst,
+               "tol_rel": PRIOR_TOL, "dcn_launches": launches[0],
+               "flash_launches": launches[1]}
+        if ref_codes is not None:
+            rec.update(codes_equal=bool(torch.equal(codes.cpu(), ref_codes)),
+                       codes=int(ref_codes.numel()),
+                       distinct_codes=int(ref_codes.unique().numel()),
+                       min_top2_margin=margin)
+        emit(rec)
+        if not (errs[worst] <= PRIOR_TOL and launches == (0, 0)
+                and rec.get("codes_equal", True)):
+            failed.append(name)
+    # SuperResolution (3 channels, 256², ×4): every operator
+    op_c = SuperResolution(3, 256, 4, device="cpu")
+    op_g = SuperResolution(3, 256, 4)
+    v = torch.randn(2, 256 * 256 * 3, generator=gen)
+    eps = torch.randn(2, 256 * 256 * 3, generator=gen)
+    y = torch.randn(2, 64 * 64 * 3, generator=gen)
+    errs = {}
+    for name, args in (("V", (v,)), ("Vt", (v,)), ("U", (y,)), ("Ut", (y,)),
+                       ("A", (v,)), ("At", (y,)), ("A_pinv", (y,)),
+                       ("Lambda", (v, 1.0, 0.1, 0.9, 0.85)),
+                       ("Lambda_noise", (v, 1.0, 0.1, 0.05, 0.85, eps))):
+        ref = getattr(op_c, name)(*args)
+        out = getattr(op_g, name)(*(a.cuda() if torch.is_tensor(a) else a
+                                    for a in args))
+        errs[name] = float((out.cpu() - ref).abs().max() / ref.abs().max())
+    worst = max(errs, key=errs.get)
+    emit({"phase": "slice_small_priors", "model": "super_resolution x4",
+          "input": [2, 256, 256, 3], "max_rel_err_cuda_vs_cpu": errs[worst],
+          "worst_output": worst, "tol_rel": PRIOR_TOL})
+    if errs[worst] > PRIOR_TOL:
+        failed.append("super_resolution")
+    torch.backends.cudnn.allow_tf32 = True
+    if failed:
+        raise AssertionError(f"slice_small_priors failed: {failed}")
+
+
+def yolo_threshold(maps, n):
+    """The ``decode_predictions`` threshold that passes the number of
+    anchors nearest ``n`` (at least one): a score of the maps, computed as
+    the decode computes it (float32 sigmoids of objectness and class), so
+    that the anchors above it are exactly those counted."""
+    def sig(v):
+        return 1.0 / (1.0 + np.exp(-v))
+
+    scores = np.concatenate([(sig(m[0, ..., 4::16]) * sig(m[0, ..., 15::16]))
+                             .reshape(-1) for m in maps])
+    vals, counts = np.unique(scores, return_counts=True)
+    above = np.cumsum(counts[::-1])[::-1]     # scores >= vals[i]
+    i = int(np.argmin(np.abs(above - n)))
+    conf = (vals[i - 1] if i > 0
+            else np.nextafter(vals[0], np.float32(-np.inf)))
+    return float(conf), int(above[i])
+
+
+class DCNTimer:
+    """Within ``with``: every call of VQFR's plain deformable conv is
+    bracketed by CUDA events; ``ms()`` sums their elapsed times."""
+
+    def __enter__(self):
+        self.pairs = []
+        self._real = vqfr_module.modulated_deform_conv2d
+
+        def timed(*args, **kw):
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            s.record()
+            out = self._real(*args, **kw)
+            e.record()
+            self.pairs.append((s, e))
+            return out
+
+        vqfr_module.modulated_deform_conv2d = timed
+        return self
+
+    def __exit__(self, *exc):
+        vqfr_module.modulated_deform_conv2d = self._real
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return sum(s.elapsed_time(e) for s, e in self.pairs)
+
+
+def phase_priors_full(ctx):
+    """The five alternative face models at their registry defaults, seeded
+    random weights at 0.02, f32, on one PRIOR_SIZE² image: the K1 / K2
+    counts set to 0 just before each first forward and read just after
+    (0 each: VQFR's DCN and RestoreFormer's attention are the plain
+    versions), the peak memory of that forward, then ms a forward (CUDA
+    events, the median of 5 after a warm-up), every output finite; the
+    peak counts the model's weights and its forward, not what earlier
+    phases hold. VQFR:
+    the plain DCN's ms in one more forward (CUDA events around each of its
+    calls); YOLOv5-face: the host decode + NMS of its maps, the threshold
+    set so that PRIOR_DETS anchors pass."""
+    dev = torch.device("cuda")
+    gen = torch.Generator().manual_seed(30)
+    x01 = torch.rand(1, 3, PRIOR_SIZE, PRIOR_SIZE, generator=gen).to(dev)
+    runs = {"vqfr": lambda m: m(x01 * 2 - 1, fidelity_ratio=1.0),
+            "restoreformer": lambda m: m(x01 * 2 - 1),
+            "vqvaegan": lambda m: m(x01 * 2 - 1),
+            "bisenet": lambda m: m(x01),
+            "yolov5face": lambda m: m(x01)}
+    bad = []
+    for i, (name, run) in enumerate(runs.items()):
+        model = get_model(name)
+        random_init_(model, seed=40 + i, scale=0.02)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        model.to(dev).eval()
+        torch.cuda.reset_peak_memory_stats()
+        deform_conv2d_raw.launches = flash_attention.launches = 0
+        with torch.no_grad():
+            out = run(model)
+            torch.cuda.synchronize()
+        launches = {"dcn_raw": deform_conv2d_raw.launches,
+                    "flash_attn": flash_attention.launches}
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+        tensors = (list(out.values()) if isinstance(out, dict) else
+                   [t for t in out if torch.is_tensor(t)]
+                   + ([out[2][0]] if name in ("restoreformer", "vqvaegan")
+                      else [])
+                   + (list(out[3].values()) if name == "restoreformer"
+                      else []))
+        with torch.no_grad():
+            ms = cuda_ms(functools.partial(run, model), reps=1, warmup=1,
+                         batches=5)
+        rec = {"phase": "priors_full", "model": f"{name} (registry defaults, "
+               "f32)", "params_m": sum(p.numel() for p in
+                                       model.parameters()) / 1e6,
+               "input": list(x01.shape),
+               "shapes": [list(t.shape) for t in tensors[:4]],
+               "finite": all(bool(torch.isfinite(t).all()) for t in tensors),
+               "ms_per_forward": ms, "peak_gib": peak, "launches": launches,
+               "card": ctx["smi"]}
+        if name == "vqfr":
+            with torch.no_grad(), DCNTimer() as timer:
+                run(model)
+            rec["dcn_plain_calls"] = len(timer.pairs)
+            rec["dcn_plain_ms_per_forward"] = timer.ms()
+            rec["dcn_plain_share"] = rec["dcn_plain_ms_per_forward"] / ms
+        if name == "yolov5face":
+            maps = [o.permute(0, 2, 3, 1).cpu().numpy() for o in out]
+            conf, passing = yolo_threshold(maps, PRIOR_DETS)
+            t0 = time.perf_counter()
+            dets = decode_predictions(maps, conf_thres=conf)
+            rec["host_decode_ms"] = (time.perf_counter() - t0) * 1e3
+            rec.update(conf_thres=conf, anchors_passing=passing,
+                       detections_after_nms=int(len(dets)))
+            rec["finite"] = rec["finite"] and bool(np.isfinite(dets).all())
+        emit(rec)
+        if not (rec["finite"] and launches == {"dcn_raw": 0,
+                                               "flash_attn": 0}):
+            bad.append(name)
+        ctx.setdefault("launches", {})[f"priors_full_{name}"] = launches
+        if ctx["profile"]:      # kept for profile_step
+            ctx.setdefault("prior_calls", {})[f"{name}_{PRIOR_SIZE}"] = (
+                functools.partial(run, model))
+        del model, out, tensors
+        torch.cuda.empty_cache()
+    if bad:
+        raise AssertionError(f"priors_full failed: {bad}")
+
+
 def run_full(ctx, name, task, model, make_apply, clip, face=None):
     """One main path at full width: every kernel count set to 0 just
     before ``restore_video``, read just after, and held to the expected
@@ -2020,8 +2332,9 @@ KERNEL_CLASSES = (   # first match wins, on the lower-cased kernel name
     ("convolution", ("fprop", "conv", "dgrad")),
     ("matmul", ("gemm", "gemv", "cutlass")),
     ("softmax", ("softmax",)),
-    ("reduction / norm", ("reduce", "norm", "welford")),
+    ("reduction / norm", ("reduce", "norm", "welford", "moments")),
     ("cat / copy", ("cat", "copy")),
+    ("gather", ("indexselect", "index_select", "gather")),
     ("fft", ("fft",)),
     ("elementwise", ("elementwise",)),
 )
@@ -2069,10 +2382,12 @@ def profile_call(ctx, path, call):
 def phase_profile_step(ctx):
     """One denoiser call of each full-width model at a window's shape, one
     face call of slice_full_face (10 faces at 512²), and one call of each
-    model interp_full and davsr_full ran, under torch.profiler
-    (``profile_call``)."""
+    model interp_full, davsr_full and priors_full ran, under
+    torch.profiler (``profile_call``)."""
     dev = torch.device("cuda")
     for name, call in ctx.get("video_calls", {}).items():
+        profile_call(ctx, name, call)
+    for name, call in ctx.get("prior_calls", {}).items():
         profile_call(ctx, name, call)
     for name, (task, model, model_apply, clip) in ctx.get("full", {}).items():
         cfg = TASK_CONFIGS[task]

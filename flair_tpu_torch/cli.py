@@ -98,14 +98,15 @@ def build_model(task: str, checkpoint: str | None, *, device=None):
     return model.to(dev).eval()
 
 
-def build_face_stack(*, checkpoint_dir: str | None = None,
+def build_face_stack(task: str, *, checkpoint_dir: str | None = None,
                      output_size: int = 512, device=None):
     """RetinaFace ResNet50 → ``FaceRestoreHelper``, and the CodeFormer and
     ParseNet appliers, on ``device`` (reference: video_sample.py:332,
     351-359, 446-479). Weights load from ``checkpoint_dir``
     (``{retinaface,codeformer,parsenet}.{npz,pt,pth}``) when there; seeded
     random ones otherwise. The detector runs in float32; CodeFormer and
-    ParseNet in bf16 on the card.
+    ParseNet in bf16 on the card. ``task`` is taken, as the JAX package
+    takes it, and not read: every task builds the same stack.
 
     Returns (face_helper, codeformer_apply, parsenet_apply)."""
     dev = resolve_device(device)
@@ -239,7 +240,7 @@ def main(argv=None) -> int:
     face_helper = codeformer_apply = parsenet_apply = None
     if not args.no_face:
         face_helper, codeformer_apply, parsenet_apply = build_face_stack(
-            checkpoint_dir=args.face_checkpoint_dir,
+            args.task, checkpoint_dir=args.face_checkpoint_dir,
             output_size=cfg.output_size, device=dev)
 
     out = restore_video(

@@ -119,7 +119,8 @@ class FaceRestoreHelper:
 
 def make_face_fn(matrices, codeformer_apply: Callable,
                  parsenet_apply: Optional[Callable] = None, *,
-                 face_size: int = 512, aligned: bool = False) -> Callable:
+                 face_size: int = 512, fidelity_w: float = 1.0,
+                 aligned: bool = False) -> Callable:
     """The sampler's face fusion with fixed matrices: ``face_fn(x0, x_t)``
     (see :func:`make_face_fn_p`; ``matrices`` (T, 2, 3), host or device)."""
     mats = torch.as_tensor(np.asarray(matrices, np.float32))
@@ -134,7 +135,8 @@ def make_face_fn(matrices, codeformer_apply: Callable,
 
 def make_face_fn_p(codeformer_apply: Callable,
                    parsenet_apply: Optional[Callable] = None, *,
-                   face_size: int = 512, aligned: bool = False) -> Callable:
+                   face_size: int = 512, fidelity_w: float = 1.0,
+                   aligned: bool = False) -> Callable:
     """``face_fn(x0, x_t, mats)`` for the sampler: x0 (B, T, H, W, 3) in
     [-1, 1] → the fused frames, with the reference fusion
     (gaussian_diffusion.py:471-494): fused = x0·(1−m) + face·m.
@@ -143,7 +145,9 @@ def make_face_fn_p(codeformer_apply: Callable,
     per clip, on x0's device. ``codeformer_apply(faces)``: (N, S, S, 3) →
     restored faces in [-1, 1] (NHWC, S = ``face_size``);
     ``parsenet_apply(faces)`` → (N, S, S, 19) logits, or None for a full
-    mask. ``aligned``: x0's frames are the faces already."""
+    mask. ``aligned``: x0's frames are the faces already. ``fidelity_w``
+    is taken, as the JAX package takes it, and not read: CodeFormer's
+    fidelity is fixed when ``codeformer_apply`` is built."""
 
     def face_fn(x0, x_t, mats):
         b, t, h, w, c = x0.shape

@@ -57,7 +57,10 @@ class LayerNorm(nn.Module):
 
 class CFResBlock(nn.Module):
     """norm → swish → conv, twice, with a 1×1 skip on a channel change
-    (codeformer.py:166-195)."""
+    (codeformer.py:166-195), named ``skip_name`` (VQFR's and RestoreFormer's
+    blocks differ from this one only in that name)."""
+
+    skip_name = "conv_out"
 
     def __init__(self, in_ch: int, out_ch: int, dtype=torch.float32):
         super().__init__()
@@ -66,14 +69,14 @@ class CFResBlock(nn.Module):
         self.norm2 = GNorm(out_ch)
         self.conv2 = Conv2d(out_ch, out_ch, 3, dtype=dtype)
         if in_ch != out_ch:
-            self.conv_out = Conv2d(in_ch, out_ch, 1, dtype=dtype)
+            self.add_module(self.skip_name, Conv2d(in_ch, out_ch, 1,
+                                                   dtype=dtype))
 
     def forward(self, x):
         h = self.conv1(F.silu(self.norm1(x)))
         h = self.conv2(F.silu(self.norm2(h)))
-        if hasattr(self, "conv_out"):
-            x = self.conv_out(x)
-        return x + h
+        skip = getattr(self, self.skip_name, None)
+        return (x if skip is None else skip(x)) + h
 
 
 class CFAttnBlock(nn.Module):

@@ -1,10 +1,11 @@
 """Model registry: denoisers and temporal modules by name.
 
-Counterpart of ``flair_tpu/models/registry.py``; this package registers
+Counterpart of ``flair_tpu/models/registry.py``, with the same names:
 ``bicubic_unet``, ``blur_unet``, ``superres_unet``, ``encoder_unet``,
-``spynet``, ``basicvsrpp``, ``codeformer``,
-``vqautoencoder``, ``parsenet``, ``retinaface``, and the video models
-``superslomo``, ``amt`` and ``davsr``."""
+``spynet``, ``basicvsrpp``, the face models ``codeformer``,
+``vqautoencoder``, ``parsenet``, ``retinaface``, ``vqfr``,
+``restoreformer``, ``vqvaegan``, ``bisenet`` and ``yolov5face``, and the
+video models ``superslomo``, ``amt`` and ``davsr``."""
 
 from __future__ import annotations
 
@@ -37,5 +38,6 @@ def list_models():
 
 
 def _register_all():
-    from . import (adm, amt, codeformer, davsr, parsenet,  # noqa: F401
-                   retinaface, spynet, sr3, superslomo, vsrpp)
+    from . import (adm, amt, bisenet, codeformer, davsr,  # noqa: F401
+                   parsenet, restoreformer, retinaface, spynet, sr3,
+                   superslomo, vqfr, vsrpp, yolov5face)

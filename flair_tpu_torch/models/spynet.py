@@ -17,6 +17,7 @@ import torch.nn.functional as F
 from ..ops.resize import resize_bilinear
 from ..ops.warp import flow_warp
 from .common import Conv2d, channels_last, nchw, nhwc
+from .registry import register_model
 
 _MEAN = (0.485, 0.456, 0.406)
 _STD = (0.229, 0.224, 0.225)
@@ -62,6 +63,7 @@ def _bilinear_up2_align(x: torch.Tensor) -> torch.Tensor:
     return top * (1 - fy) + bot * fy
 
 
+@register_model("spynet")
 class SPyNet(nn.Module):
     """6-level pyramid flow estimator; ``forward(ref, supp)``."""
 
@@ -109,3 +111,16 @@ class SPyNet(nn.Module):
                                  device=flow.device).view(1, 2, 1, 1)
             flow = flow * scale
         return flow.contiguous()
+
+
+def compute_flow_bidirectional(spynet: SPyNet, lqs: torch.Tensor):
+    """(B, T, H, W, 3) in [-1, 1] → (flows_forward, flows_backward), each
+    (B, T-1, H, W, 2) with channel 0 = dx: BasicVSRPP.compute_flow
+    (unet.py:383-404), the frames clamped to [0, 1] first."""
+    lqs01 = torch.clamp((lqs + 1.0) / 2.0, 0.0, 1.0)
+    b, t, h, w, c = lqs01.shape
+    l1 = nchw(lqs01[:, :-1].reshape(b * (t - 1), h, w, c))
+    l2 = nchw(lqs01[:, 1:].reshape(b * (t - 1), h, w, c))
+    fwd = nhwc(spynet(l2, l1)).reshape(b, t - 1, h, w, 2)
+    bwd = nhwc(spynet(l1, l2)).reshape(b, t - 1, h, w, 2)
+    return fwd, bwd

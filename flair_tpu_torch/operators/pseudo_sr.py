@@ -84,7 +84,7 @@ class PseudoSR:
         sf = int(conf.scale_factor)
         self.ds_factor = sf
         self.device = resolve_device(device)
-        self.ds_kernel, self.pre_stride, _ = imresize_kernel(
+        self.ds_kernel, self.pre_stride, self.post_stride = imresize_kernel(
             sf, blur_kernel, kernel_indx)
         self.inv_hth = _compute_inv_hth(self.ds_kernel.astype(np.float64), sf)
 
@@ -128,12 +128,14 @@ class PseudoSR:
 
     # -- operator interface -------------------------------------------------
 
-    def A(self, hr: torch.Tensor) -> torch.Tensor:
+    def A(self, hr: torch.Tensor, use_zero_padding: bool = False
+          ) -> torch.Tensor:
         """The degradation: antialias filter + phase-aligned decimation
-        (pseudoSR.py:283-295 → imresize_efficient). Reflect padding by half
-        the kernel, which ``F.pad`` takes only for an image wider than that."""
+        (pseudoSR.py:283-295 → imresize_efficient), reflect-padded by half
+        the kernel, or zero-padded with ``use_zero_padding``."""
         return imresize_efficient(hr, self._ds_kernel, self.ds_factor,
-                                  self.pre_stride)
+                                  self.pre_stride, self.post_stride,
+                                  use_zero_padding=use_zero_padding)
 
     def A_pinv(self, lr: torch.Tensor, generated: Optional[torch.Tensor] = None,
                jpeg_qf: Optional[int] = None) -> torch.Tensor:

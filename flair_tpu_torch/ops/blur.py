@@ -38,7 +38,9 @@ def reflect_indices(n: int, p: int) -> np.ndarray:
     return np.where(m < n, m, 2 * (n - 1) - m)
 
 
-def _reflect_pad(v: torch.Tensor, dim: int, p: int) -> torch.Tensor:
+def reflect_pad(v: torch.Tensor, dim: int, p: int) -> torch.Tensor:
+    """``v`` padded by ``p`` on each side of ``dim`` by ``jnp.pad``'s
+    reflect rule (:func:`reflect_indices`)."""
     idx = torch.as_tensor(reflect_indices(v.shape[dim], p), device=v.device)
     return v.index_select(dim, idx)
 
@@ -52,8 +54,8 @@ def gaussian_blur(x: torch.Tensor, ksize: int, sigma: float) -> torch.Tensor:
     k = torch.as_tensor(gaussian_kernel_1d(ksize, sigma), dtype=x.dtype,
                         device=x.device)
     v = x.permute(0, 3, 1, 2)
-    v = F.conv2d(_reflect_pad(v, 2, p),
+    v = F.conv2d(reflect_pad(v, 2, p),
                  k.view(1, 1, ksize, 1).expand(c, 1, ksize, 1), groups=c)
-    v = F.conv2d(_reflect_pad(v, 3, p),
+    v = F.conv2d(reflect_pad(v, 3, p),
                  k.view(1, 1, 1, ksize).expand(c, 1, 1, ksize), groups=c)
     return v.permute(0, 2, 3, 1)

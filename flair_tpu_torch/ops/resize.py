@@ -21,6 +21,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .blur import reflect_pad
+
 
 def keys_cubic(x: np.ndarray, a: float = -0.75) -> np.ndarray:
     """Keys piecewise-cubic kernel, support [-2, 2] (a=-0.75: cv2/torch)."""
@@ -170,22 +172,14 @@ def imresize_kernel(ds_factor: int, blur_kernel: np.ndarray | None = None,
 # imresize: device side
 # ---------------------------------------------------------------------------
 
-_TORCH_PAD = {"reflect": "reflect", "edge": "replicate", "zero": "constant"}
-
-
 def depthwise_filter2d(x: torch.Tensor, kernel, *, padding: str = "reflect",
                        correlate: bool = False) -> torch.Tensor:
     """One shared 2-D kernel applied to every channel of NHWC ``x`` as a
     grouped ``F.conv2d``. True convolution by default (the kernel flipped,
-    the reference's rot90(k, 2)-then-correlate, imresize_pseudoSR.py:165-178);
-    ``padding``: 'reflect' (no edge repeat) | 'edge' | 'zero', each by half
-    the kernel size.
-
-    ``F.pad(mode="reflect")`` needs the pad smaller than the padded size,
-    which ``jnp.pad`` does not: with the gaussian/jpeg ×4 kernel (9×9 once
-    recentred and trimmed) a reflect-padded image must be at least 5 pixels
-    wide. 'edge' ('replicate') and 'zero' have no such limit, so the 39×39
-    inverse filter pads a 16² frame by 19."""
+    the reference's rot90(k, 2)-then-correlate, imresize_pseudoSR.py:165-178).
+    ``padding``, by half the kernel size: 'reflect' (no edge repeat, by
+    ``jnp.pad``'s rule for any amount, so an image narrower than the pad
+    reflects again), 'edge', 'zero', or 'none' (the valid output)."""
     if not isinstance(kernel, torch.Tensor):
         kernel = torch.from_numpy(np.ascontiguousarray(kernel))
     k = kernel.to(dtype=x.dtype, device=x.device)
@@ -193,25 +187,35 @@ def depthwise_filter2d(x: torch.Tensor, kernel, *, padding: str = "reflect",
         k = k.flip(0, 1)
     kh, kw = k.shape
     c = x.shape[-1]
-    v = F.pad(x.permute(0, 3, 1, 2), (kw // 2, kw // 2, kh // 2, kh // 2),
-              mode=_TORCH_PAD[padding])
+    v = x.permute(0, 3, 1, 2)
+    if padding == "reflect":
+        v = reflect_pad(reflect_pad(v, 2, kh // 2), 3, kw // 2)
+    elif padding in ("edge", "zero"):
+        v = F.pad(v, (kw // 2, kw // 2, kh // 2, kh // 2),
+                  mode="replicate" if padding == "edge" else "constant")
+    elif padding != "none":
+        raise ValueError(f"unknown padding: {padding!r}")
     y = F.conv2d(v, k.expand(c, 1, kh, kw).contiguous(), groups=c)
     return y.permute(0, 2, 3, 1)
 
 
 def imresize_efficient(x: torch.Tensor, ds_kernel, ds_factor: int,
-                       pre_stride) -> torch.Tensor:
-    """Antialias filter (reflect padding) + phase-aligned decimation of NHWC
-    ``x``: the pseudoSR ``A`` operator (imresize_pseudoSR.py:163-178)."""
-    y = depthwise_filter2d(x, ds_kernel, padding="reflect")
+                       pre_stride, post_stride, *,
+                       use_zero_padding: bool = False) -> torch.Tensor:
+    """Antialias filter (reflect padding, or zero with
+    ``use_zero_padding``) + phase-aligned decimation of NHWC ``x``: the
+    pseudoSR ``A`` operator (imresize_pseudoSR.py:163-178). ``post_stride``
+    is taken, as the JAX package takes it, and not read."""
+    y = depthwise_filter2d(x, ds_kernel,
+                           padding="zero" if use_zero_padding else "reflect")
     return y[:, int(pre_stride[0])::ds_factor, int(pre_stride[1])::ds_factor]
 
 
 def matlab_imresize(x: torch.Tensor, ds_factor: int, blur_kernel=None,
                     kernel_indx: int = 0) -> torch.Tensor:
     """Full imresize, downscale path (imresize_pseudoSR.py:10-79)."""
-    k, pre, _ = imresize_kernel(ds_factor, blur_kernel, kernel_indx)
-    return imresize_efficient(x, k, ds_factor, pre)
+    k, pre, post = imresize_kernel(ds_factor, blur_kernel, kernel_indx)
+    return imresize_efficient(x, k, ds_factor, pre, post)
 
 
 # ---------------------------------------------------------------------------

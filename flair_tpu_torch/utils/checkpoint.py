@@ -20,6 +20,7 @@ optimizer state). The port writes no orbax.
 
 from __future__ import annotations
 
+import functools
 import os
 import shutil
 from typing import Callable, Mapping, Optional
@@ -32,14 +33,18 @@ from .convert import t2j_conv2d, t2j_conv3d, t2j_linear  # noqa: F401
 UPSTREAM = {
     "amt": convert.convert_amt,
     "bicubic_unet": convert.convert_bicubic_unet,
+    "bisenet": convert.convert_bisenet,
     "blur_unet": convert.convert_blur_unet,
     "codeformer": convert.convert_codeformer,
     # the auxiliary nets only: the map leaves the regularizer out
     "davsr": convert.convert_davsr_aux,
     "parsenet": convert.convert_parsenet,
+    "restoreformer": convert.convert_restoreformer,
     "retinaface": convert.convert_retinaface,
     "spynet": convert.convert_spynet,
     "superslomo": convert.convert_superslomo,
+    "vqfr": convert.convert_vqfr,
+    "vqvaegan": functools.partial(convert.convert_restoreformer, cross=False),
 }
 
 

@@ -887,3 +887,296 @@ def convert_amt(s: Mapping[str, np.ndarray]) -> dict:
     r = UpstreamReader(s)
     amt_names(r)
     return from_flax(r.flat)
+
+
+# BiSeNet (facelib/parsing/bisenet.py:8-141 + parsing/resnet.py) -----------
+
+
+def _cbr(r, t: str, j: str) -> None:
+    """The reference ConvBNReLU (conv, bn) → ConvBNReLU."""
+    r.put(f"{t}.conv.weight", f"{j}/conv/kernel", "conv")
+    _bn(r, f"{t}.bn", f"{j}/bn")
+
+
+def bisenet_names(r) -> None:
+    """The BiSeNet name map (flair_tpu convert_bisenet; the
+    parsing_bisenet.pth layout): the ResNet18 backbone, the context path,
+    the fusion module and the three heads."""
+    r.put("cp.resnet.conv1.weight", "resnet/conv1/kernel", "conv")
+    _bn(r, "cp.resnet.bn1", "resnet/bn1")
+    for li in range(4):
+        for bi in range(2):
+            t, j = f"cp.resnet.layer{li + 1}.{bi}", f"resnet/layer{li + 1}_{bi}"
+            for ci in (1, 2):
+                r.put(f"{t}.conv{ci}.weight", f"{j}/c{ci}/conv/kernel", "conv")
+                _bn(r, f"{t}.bn{ci}", f"{j}/c{ci}/bn")
+            if r.has(f"{t}.downsample.0.weight",
+                     f"{j}/downsample/conv/kernel"):
+                r.put(f"{t}.downsample.0.weight",
+                      f"{j}/downsample/conv/kernel", "conv")
+                _bn(r, f"{t}.downsample.1", f"{j}/downsample/bn")
+    _cbr(r, "cp.conv_avg", "conv_avg")
+    for arm in ("arm16", "arm32"):
+        _cbr(r, f"cp.{arm}.conv", f"{arm}/conv")
+        r.put(f"cp.{arm}.conv_atten.weight", f"{arm}/conv_atten/kernel",
+              "conv")
+        _bn(r, f"cp.{arm}.bn_atten", f"{arm}/bn_atten")
+    _cbr(r, "cp.conv_head32", "conv_head32")
+    _cbr(r, "cp.conv_head16", "conv_head16")
+    _cbr(r, "ffm.convblk", "ffm/convblk")
+    for i in (1, 2):
+        r.put(f"ffm.conv{i}.weight", f"ffm/conv{i}/kernel", "conv")
+    for name in ("conv_out", "conv_out16", "conv_out32"):
+        _cbr(r, f"{name}.conv", f"{name}/conv")
+        r.put(f"{name}.conv_out.weight", f"{name}/conv_out/kernel", "conv")
+
+
+def convert_bisenet(s: Mapping[str, np.ndarray]) -> dict:
+    """BiSeNet parser weights (facelib/parsing/__init__.py:8-25) → the
+    port's ``BiSeNet`` state_dict."""
+    r = UpstreamReader(s)
+    bisenet_names(r)
+    return from_flax(r.flat)
+
+
+# RestoreFormer and VQVAEGAN (restoreformer.py:7-861) ----------------------
+
+
+def _rf_resblock(r, t: str, j: str) -> None:
+    _norm(r, f"{t}.norm1", f"{j}/norm1/GroupNorm_0")
+    _conv(r, f"{t}.conv1", f"{j}/conv1")
+    _norm(r, f"{t}.norm2", f"{j}/norm2/GroupNorm_0")
+    _conv(r, f"{t}.conv2", f"{j}/conv2")
+    if r.has(f"{t}.nin_shortcut.weight", f"{j}/nin_shortcut/kernel"):
+        _conv(r, f"{t}.nin_shortcut", f"{j}/nin_shortcut")
+
+
+def _rf_attn(r, t: str, j: str, *, norm2: bool) -> None:
+    """MultiHeadAttnBlock (restoreformer.py:218-285). The reference module
+    always owns norm2; the port's only on the cross-attention path."""
+    _norm(r, f"{t}.norm1", f"{j}/norm1/GroupNorm_0")
+    if norm2:
+        _norm(r, f"{t}.norm2", f"{j}/norm2/GroupNorm_0")
+    for p in ("q", "k", "v", "proj_out"):
+        _conv(r, f"{t}.{p}", f"{j}/{p}")
+
+
+def restoreformer_names(r, *, ch_mult: Sequence[int] = (1, 2, 2, 4, 4, 8),
+                        num_res_blocks: int = 2, resolution: int = 512,
+                        attn_resolutions: Sequence[int] = (16,),
+                        ex_multi_scale_num: int = 1,
+                        cross: bool = True) -> None:
+    """The RestoreFormer name map (flair_tpu convert_restoreformer):
+    VQVAEGANMultiHeadTransformer with ``cross``, the plain VQVAEGAN
+    without. The reference decoder's ModuleList is built with
+    insert(0, ...), so up.{i} is level i."""
+    n = len(ch_mult)
+    _conv(r, "encoder.conv_in", "encoder/conv_in")
+    curr = resolution
+    for i in range(n):
+        for j in range(num_res_blocks):
+            _rf_resblock(r, f"encoder.down.{i}.block.{j}",
+                         f"encoder/down{i}_block{j}")
+            if curr in attn_resolutions:
+                _rf_attn(r, f"encoder.down.{i}.attn.{j}",
+                         f"encoder/down{i}_attn{j}", norm2=False)
+        if i != n - 1:
+            _conv(r, f"encoder.down.{i}.downsample.conv",
+                  f"encoder/down{i}_ds/conv")
+            curr //= 2
+    _rf_resblock(r, "encoder.mid.block_1", "encoder/mid_block1")
+    _rf_attn(r, "encoder.mid.attn_1", "encoder/mid_attn", norm2=False)
+    _rf_resblock(r, "encoder.mid.block_2", "encoder/mid_block2")
+    _norm(r, "encoder.norm_out", "encoder/norm_out/GroupNorm_0")
+    _conv(r, "encoder.conv_out", "encoder/conv_out")
+
+    _conv(r, "quant_conv", "quant_conv")
+    _conv(r, "post_quant_conv", "post_quant_conv")
+    r.put("quantize.embedding.weight", "quantize/embedding")
+
+    dec_attn = list(attn_resolutions)
+    if cross:
+        for _ in range(ex_multi_scale_num):
+            dec_attn = [dec_attn[0], dec_attn[-1] * 2]
+    _conv(r, "decoder.conv_in", "decoder/conv_in")
+    _rf_resblock(r, "decoder.mid.block_1", "decoder/mid_block1")
+    _rf_attn(r, "decoder.mid.attn_1", "decoder/mid_attn", norm2=cross)
+    _rf_resblock(r, "decoder.mid.block_2", "decoder/mid_block2")
+    curr = resolution // 2 ** (n - 1)
+    for i in reversed(range(n)):
+        for j in range(num_res_blocks + 1):
+            _rf_resblock(r, f"decoder.up.{i}.block.{j}",
+                         f"decoder/up{i}_block{j}")
+            if curr in dec_attn:
+                _rf_attn(r, f"decoder.up.{i}.attn.{j}",
+                         f"decoder/up{i}_attn{j}", norm2=cross)
+        if i != 0:
+            _conv(r, f"decoder.up.{i}.upsample.conv",
+                  f"decoder/up{i}_us/conv")
+            curr *= 2
+    _norm(r, "decoder.norm_out", "decoder/norm_out/GroupNorm_0")
+    _conv(r, "decoder.conv_out", "decoder/conv_out")
+
+
+def convert_restoreformer(s: Mapping[str, np.ndarray], **config) -> dict:
+    """RestoreFormer (``cross=True``) or VQVAEGAN (``cross=False``)
+    weights → the port's ``RestoreFormer`` / ``VQVAEGAN`` state_dict."""
+    r = UpstreamReader(s)
+    restoreformer_names(r, **config)
+    return from_flax(r.flat)
+
+
+# VQFR (vqfr.py:11-586) ---------------------------------------------------
+
+
+def _vqfr_res(r, t: str, j: str) -> None:
+    _norm(r, f"{t}.norm1", f"{j}/norm1/GroupNorm_0")
+    _conv(r, f"{t}.conv1", f"{j}/conv1")
+    _norm(r, f"{t}.norm2", f"{j}/norm2/GroupNorm_0")
+    _conv(r, f"{t}.conv2", f"{j}/conv2")
+    if r.has(f"{t}.residual_func.weight", f"{j}/residual_func/kernel"):
+        _conv(r, f"{t}.residual_func", f"{j}/residual_func")
+
+
+def _vqgan_levels(r, side: str, n: int, num_blocks: int,
+                  use_attention: bool) -> None:
+    """The blocks.{k} Sequentials of the VQ-GAN encoder (level k, after a
+    Downsample for k > 0) or decoder (level n-1-k, after an Upsample for
+    k > 0), each num_blocks × [Res, Attn at the deepest level]."""
+    for k in range(n):
+        i = k if side == "encoder" else n - 1 - k
+        si, t = 0, f"{side}.blocks.{k}"
+        if k != 0:
+            _conv(r, f"{t}.{si}.conv",
+                  f"{side}/{'down' if side == 'encoder' else 'up'}{i}/conv")
+            si += 1
+        for j in range(num_blocks):
+            _vqfr_res(r, f"{t}.{si}", f"{side}/block{i}_{j}")
+            si += 1
+            if i == n - 1 and use_attention:
+                _cf_attnblock(r, f"{t}.{si}", f"{side}/attn{i}_{j}")
+                si += 1
+
+
+def _vqgan_mid(r, side: str, use_attention: bool) -> None:
+    _vqfr_res(r, f"{side}.mid_blocks.0", f"{side}/mid1")
+    if use_attention:
+        _cf_attnblock(r, f"{side}.mid_blocks.1", f"{side}/mid_attn")
+    _vqfr_res(r, f"{side}.mid_blocks.{2 if use_attention else 1}",
+              f"{side}/mid2")
+
+
+def vqfr_names(r, *,
+               channel_multipliers: Sequence[int] = (1, 2, 2, 4, 4, 8),
+               num_enc_blocks: int = 2, use_enc_attention: bool = True,
+               num_dec_blocks: int = 2, use_dec_attention: bool = True
+               ) -> None:
+    """The VQFRv2 name map (flair_tpu convert_vqfr; the released
+    VQFR_v2.pth layout): encoder, token head and codebook, decoder, the
+    shared output head and the main branch."""
+    n = len(channel_multipliers)
+    _conv(r, "inpfeat_extraction", "inpfeat_extraction")
+    _conv(r, "encoder.conv_in", "encoder/conv_in")
+    _vqgan_levels(r, "encoder", n, num_enc_blocks, use_enc_attention)
+    _vqgan_mid(r, "encoder", use_enc_attention)
+    _norm(r, "encoder.conv_out.0", "encoder/norm_out/GroupNorm_0")
+    _conv(r, "encoder.conv_out.2", "encoder/conv_out")
+    if r.has("feat2index.0.weight", "feat2index_norm/scale"):
+        _norm(r, "feat2index.0", "feat2index_norm")
+        _linear(r, "feat2index.1", "feat2index")
+    r.put("quantizer.embedding.weight", "quantizer/embedding")
+    _conv(r, "decoder.conv_in", "decoder/conv_in")
+    _vqgan_mid(r, "decoder", use_dec_attention)
+    _vqgan_levels(r, "decoder", n, num_dec_blocks, use_dec_attention)
+    _norm(r, "decoder.conv_out.0", "decoder_out/norm_out/GroupNorm_0")
+    _conv(r, "decoder.conv_out.2", "decoder_out/conv_out")
+    for i in reversed(range(n)):
+        lv = 2 ** i
+        t = f"main_branch.align_func_dict.Level_{lv}"
+        j = f"align_Level_{lv}"
+        _conv(r, f"{t}.offset_conv1.0", f"{j}/off1_0")
+        _norm(r, f"{t}.offset_conv1.1", f"{j}/off1_n0/GroupNorm_0")
+        _conv(r, f"{t}.offset_conv1.3", f"{j}/off1_1")
+        _norm(r, f"{t}.offset_conv1.4", f"{j}/off1_n1/GroupNorm_0")
+        _conv(r, f"{t}.offset_conv1.6", f"{j}/off1_2")
+        _conv(r, f"{t}.offset_conv2.0", f"{j}/off2")
+        _norm(r, f"{t}.offset_conv2.1", f"{j}/off2_n/GroupNorm_0")
+        _conv(r, f"{t}.dcn.conv_offset", f"{j}/dcn/conv_offset")
+        r.put(f"{t}.dcn.weight", f"{j}/dcn/weight", "conv")
+        r.put(f"{t}.dcn.bias", f"{j}/dcn/bias")
+        if i != n - 1:
+            _conv(r, f"main_branch.pre_upsample_dict.Level_{lv}.1",
+                  f"pre_up_{lv}")
+            _vqfr_res(r, f"main_branch.decoder_dict.Level_{lv}",
+                      f"dec_Level_{lv}")
+
+
+def convert_vqfr(s: Mapping[str, np.ndarray], **config) -> dict:
+    """VQFRv2 weights (vqfr.py:490-586) → the port's ``VQFRv2``
+    state_dict."""
+    r = UpstreamReader(s)
+    vqfr_names(r, **config)
+    return from_flax(r.flat)
+
+
+# YOLOv5-face (facelib/detection/yolov5face/models/yolo.py:95-235) ---------
+
+
+def _yolo_conv(r, t: str, j: str) -> None:
+    """yolov5face Conv (common.py:46-48): conv (no bias) + BN."""
+    r.put(f"{t}.conv.weight", f"{j}/conv/kernel", "conv")
+    _bn(r, f"{t}.bn", f"{j}/bn")
+
+
+def yolov5face_names(r, cfg: Mapping) -> None:
+    """The YOLOv5-face name map (flair_tpu convert_yolov5face) for
+    ``YOLOv5FromConfig(cfg)``: the same [from, number, module, args] walk
+    as the interpreter, so torch layer i is the port's ``l{i}_<module>``."""
+    from ..models.yolov5face import layer_name
+
+    gd = cfg["depth_multiple"]
+    layers = list(cfg["backbone"]) + list(cfg["head"])
+    for li, (frm, num, mod, args) in enumerate(layers):
+        mod = str(mod)
+        t, j = f"model.{li}", layer_name(li, mod)
+        n = max(round(num * gd), 1) if num > 1 else num
+        if mod == "Conv":
+            _yolo_conv(r, t, j)
+        elif mod == "StemBlock":
+            for sub in ("stem_1", "stem_2a", "stem_2b", "stem_3"):
+                _yolo_conv(r, f"{t}.{sub}", f"{j}/{sub}")
+        elif mod == "C3":
+            for sub in ("cv1", "cv2", "cv3"):
+                _yolo_conv(r, f"{t}.{sub}", f"{j}/{sub}")
+            for bi in range(n):
+                _yolo_conv(r, f"{t}.m.{bi}.cv1", f"{j}/m{bi}/cv1")
+                _yolo_conv(r, f"{t}.m.{bi}.cv2", f"{j}/m{bi}/cv2")
+        elif mod == "SPP":
+            _yolo_conv(r, f"{t}.cv1", f"{j}/cv1")
+            _yolo_conv(r, f"{t}.cv2", f"{j}/cv2")
+        elif mod == "ShuffleV2Block":
+            pairs = ((("branch1.0", "b1_dw"), ("branch1.2", "b1_pw"))
+                     if args[1] > 1 else ()) + (
+                ("branch2.0", "b2_pw1"), ("branch2.3", "b2_dw"),
+                ("branch2.5", "b2_pw2"))
+            for ni in range(n):
+                tt = f"{t}.{ni}" if n > 1 else t
+                for tb, jb in pairs:
+                    # each branch conv's BatchNorm is the next entry
+                    bn_t = f"{tt}.{tb[:-1]}{int(tb[-1]) + 1}"
+                    r.put(f"{tt}.{tb}.weight", f"{j}_{ni}/{jb}_conv/kernel",
+                          "conv")
+                    _bn(r, bn_t, f"{j}_{ni}/{jb}_bn")
+        elif mod == "Detect":
+            for i in range(len(frm)):
+                _conv(r, f"{t}.m.{i}", f"detect{i}")
+        elif mod not in ("nn.Upsample", "Concat"):
+            raise ValueError(f"unknown module in config: {mod}")
+
+
+def convert_yolov5face(s: Mapping[str, np.ndarray], cfg: Mapping) -> dict:
+    """YOLOv5-face weights (yolov5n / l-face .pth) → the state_dict of the
+    port's ``YOLOv5FromConfig(cfg)``."""
+    r = UpstreamReader(s)
+    yolov5face_names(r, cfg)
+    return from_flax(r.flat)

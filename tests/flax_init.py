@@ -34,3 +34,21 @@ def random_flax_params(model, seed, *args, **kwargs):
             v = 0.02 * v
         flat[k] = v.astype(np.float32)
     return flat
+
+
+def with_norms(flat, seed):
+    """``flat`` with every norm's ``scale`` drawn as 1 + N(0, 0.1²) and
+    BatchNorm running statistics away from (0, 1): mean N(0, 0.1²), var
+    U(0.5, 1.5) (``random_flax_params`` draws them as biases)."""
+    rng = np.random.default_rng(seed)
+    out = dict(flat)
+    for k, v in flat.items():
+        leaf = k.rsplit("/", 1)[-1]
+        if leaf == "scale":
+            v = 1.0 + 0.1 * rng.standard_normal(v.shape)
+        elif k.startswith("batch_stats/") and leaf == "mean":
+            v = 0.1 * rng.standard_normal(v.shape)
+        elif k.startswith("batch_stats/") and leaf == "var":
+            v = rng.uniform(0.5, 1.5, v.shape)
+        out[k] = np.asarray(v, np.float32)
+    return out

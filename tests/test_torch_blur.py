@@ -2,7 +2,9 @@
 
 - imresize kernel synthesis (``imresize_kernel``, ``center_mass``,
   ``calc_strides``) against the JAX package's host code (≤1e-6);
-- the depthwise filter in its three paddings, and PseudoSR ``A`` /
+- the depthwise filter in its four paddings (reflect by ``jnp.pad``'s
+  rule at images narrower than the pad), ``imresize_efficient`` with and
+  without zero padding in JAX's call form, and PseudoSR ``A`` /
   ``A_pinv`` / ``Lambda`` at ×4 with the demo blur kernel (≤1e-4);
 - the 8×8 block DCT and the JPEG codec at qf 60: the quantised
   coefficients may differ only where one sits at a rounding tie that float
@@ -99,18 +101,61 @@ def test_center_mass_and_strides_match_flair_tpu(sf):
                                atol=1e-12)
 
 
-@pytest.mark.parametrize("padding,correlate", [
-    ("reflect", False), ("reflect", True), ("edge", True), ("zero", False)])
-def test_depthwise_filter2d(padding, correlate):
+@pytest.mark.parametrize("padding,correlate,hw,khw,atol", [
+    pytest.param("reflect", False, (20, 18), (7, 5), 1e-5, id="reflect-False"),
+    pytest.param("reflect", True, (20, 18), (7, 5), 1e-5, id="reflect-True"),
+    pytest.param("edge", True, (20, 18), (7, 5), 1e-5, id="edge-True"),
+    pytest.param("zero", False, (20, 18), (7, 5), 1e-5, id="zero-False"),
+    # the ×4 demo kernel (9×9, unit sum) on images in [-1, 1]: the valid
+    # output, and images no wider than the kernel's half-width, reflected
+    # again as jnp.pad does
+    pytest.param("none", False, (16, 16), "demo", 1e-6, id="none-False"),
+    pytest.param("reflect", False, (4, 4), "demo", 1e-6, id="reflect-4x4"),
+    pytest.param("reflect", True, (5, 5), "demo", 1e-6, id="reflect-5x5"),
+    pytest.param("edge", False, (4, 4), "demo", 1e-6, id="edge-4x4"),
+    pytest.param("zero", False, (5, 5), "demo", 1e-6, id="zero-5x5")])
+def test_depthwise_filter2d(padding, correlate, hw, khw, atol):
     from flair_tpu.ops.resize import depthwise_filter2d as jf
     from flair_tpu_torch.ops.resize import depthwise_filter2d as tf
+    from flair_tpu_torch.ops.resize import imresize_kernel
 
-    x = rand(1, 2, 20, 18, 3)
-    k = rand(2, 7, 5)
+    if khw == "demo":
+        x = np.tanh(rand(1, 2, *hw, 3))
+        k = imresize_kernel(4, demo_kernel(), 10)[0]
+        assert k.shape == (9, 9)
+    else:
+        x = rand(1, 2, *hw, 3)
+        k = rand(2, *khw)
     out = tf(torch.from_numpy(x), k, padding=padding, correlate=correlate)
     ref = jf(jnp.asarray(x), k, padding=padding, correlate=correlate)
     assert out.shape == ref.shape
-    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-5)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=atol)
+
+
+@pytest.mark.parametrize("use_zero_padding", [False, True])
+def test_imresize_efficient_padding(use_zero_padding):
+    """JAX's call ``imresize_efficient(x, k, f, pre, post,
+    use_zero_padding=...)`` and ``PseudoSR.A(hr, use_zero_padding=...)``,
+    at 4² (below the 9×9 kernel's half-width) and 64²."""
+    from flair_tpu.operators.factory import get_operator as jget
+    from flair_tpu.ops.resize import imresize_efficient as jf
+    from flair_tpu.ops.resize import imresize_kernel
+    from flair_tpu_torch.operators.factory import get_operator as tget
+    from flair_tpu_torch.ops.resize import imresize_efficient as tf
+
+    k, pre, post = imresize_kernel(4, demo_kernel(), 10)
+    for seed, size in ((6, 4), (7, 64)):
+        x = np.tanh(rand(seed, 1, size, size, 3))
+        out = tf(torch.from_numpy(x), k, 4, pre, post,
+                 use_zero_padding=use_zero_padding)
+        ref = jf(jnp.asarray(x), k, 4, pre, post,
+                 use_zero_padding=use_zero_padding)
+        assert out.shape == ref.shape
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
+    op_t, op_j = tget("gaussian", 64, device="cpu"), jget("gaussian", 64)
+    out = op_t.A(torch.from_numpy(x), use_zero_padding=use_zero_padding)
+    ref = op_j.A(jnp.asarray(x), use_zero_padding=use_zero_padding)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=1e-6)
 
 
 @pytest.mark.parametrize("sf,kernel", [(2, None), (4, "demo")])

@@ -27,7 +27,7 @@ import jax
 import jax.numpy as jnp
 
 from flair_tpu.utils import convert as jconvert
-from flax_init import random_flax_params
+from flax_init import random_flax_params, with_norms
 from flair_tpu.utils.checkpoint import flatten_params, unflatten_params
 from flair_tpu_torch.utils import checkpoint as tckpt
 from flair_tpu_torch.utils import convert as tconvert
@@ -290,6 +290,75 @@ def case_davsr_aux():
     return flat, j_out, model, fwd, "davsr_aux", {}, None
 
 
+def case_bisenet():
+    from flair_tpu.models.bisenet import BiSeNet as J
+    from flair_tpu_torch.models.bisenet import BiSeNet as T
+
+    x = uniform(25, 1, 64, 64, 3, lo=0.0)
+    jm = J()
+    flat = with_norms(random_flax_params(jm, 26, x), 27)
+    j_out = np.asarray(jax.jit(jm.apply)(unflatten_params(flat), x)[0])
+    return (flat, j_out, T(), lambda m: nhwc(m(nchw(x))[0]), "bisenet", {},
+            None)
+
+
+RF_KW = dict(n_embed=16, embed_dim=16, ch=32, ch_mult=(1, 2),
+             num_res_blocks=1, attn_resolutions=(16,), z_channels=16,
+             head_size=2)
+RF_MAP = dict(ch_mult=(1, 2), num_res_blocks=1, resolution=32,
+              attn_resolutions=(16,))
+
+
+def case_restoreformer(cross):
+    from flair_tpu.models import restoreformer as J
+    from flair_tpu_torch.models import restoreformer as T
+
+    x = uniform(28, 1, 32, 32, 3)
+    cls = "RestoreFormer" if cross else "VQVAEGAN"
+    jm = getattr(J, cls)(**RF_KW)
+    flat = with_norms(random_flax_params(jm, 29, x), 30)
+    flat["params/quantize/embedding"] = uniform(31, 16, 16)
+    j_out = np.asarray(jax.jit(jm.apply)(unflatten_params(flat), x)[0])
+    return (flat, j_out, getattr(T, cls)(**RF_KW, resolution=32),
+            lambda m: nhwc(m(nchw(x))[0]), "restoreformer",
+            dict(RF_MAP, cross=cross), None)
+
+
+def case_vqfr():
+    from flair_tpu.models.vqfr import VQFRv2 as J
+    from flair_tpu_torch.models.vqfr import VQFRv2 as T
+
+    kw = dict(base_channels=32, channel_multipliers=(1, 2), num_enc_blocks=1,
+              num_dec_blocks=1, code_dim=32, inpfeat_dim=8, num_code=16,
+              deformable_groups=2)
+    x = uniform(32, 1, 32, 32, 3)
+    jm = J(**kw)
+    flat = with_norms(random_flax_params(jm, 3, x), 4)
+    j_out = np.asarray(jax.jit(jm.apply)(unflatten_params(flat),
+                                         x)["main_dec"])
+    return (flat, j_out, T(**kw), lambda m: nhwc(m(nchw(x))["main_dec"]),
+            "vqfr", dict(channel_multipliers=(1, 2), num_enc_blocks=1,
+                         num_dec_blocks=1), None)
+
+
+def case_yolov5n():
+    from flair_tpu.models.yolov5face import YOLOv5FromConfig as J
+    from flair_tpu_torch.models.yolov5face import (YOLOV5N_FACE_CFG,
+                                                   YOLOv5FromConfig as T)
+
+    x = uniform(33, 1, 64, 64, 3, lo=0.0)
+    jm = J(YOLOV5N_FACE_CFG)
+    flat = with_norms(random_flax_params(jm, 34, x), 35)
+    j_out = np.concatenate([np.asarray(o).reshape(-1) for o in jax.jit(
+        jm.apply)(unflatten_params(flat), x)])
+
+    def fwd(m):
+        return np.concatenate([nhwc(o).reshape(-1) for o in m(nchw(x))])
+
+    return (flat, j_out, T(YOLOV5N_FACE_CFG), fwd, "yolov5face",
+            dict(cfg=YOLOV5N_FACE_CFG), None)
+
+
 CASES = {
     "spynet": case_spynet,
     "bicubic_unet": case_bicubic_unet,
@@ -301,6 +370,11 @@ CASES = {
     "superslomo": case_superslomo,
     "amt": case_amt,
     "davsr_aux": case_davsr_aux,
+    "bisenet": case_bisenet,
+    "restoreformer": lambda: case_restoreformer(True),
+    "vqvaegan": lambda: case_restoreformer(False),
+    "vqfr": case_vqfr,
+    "yolov5face_yolov5n": case_yolov5n,
 }
 # the registry model whose checkpoints a map reads, where the names differ
 MODEL_NAMES = {"davsr_aux": "davsr"}
@@ -314,6 +388,10 @@ NAME_MAPS = {
     "superslomo": tconvert.superslomo_names,
     "amt": tconvert.amt_names,
     "davsr_aux": tconvert.davsr_aux_names,
+    "bisenet": tconvert.bisenet_names,
+    "restoreformer": tconvert.restoreformer_names,
+    "vqfr": tconvert.vqfr_names,
+    "yolov5face": tconvert.yolov5face_names,
 }
 
 
@@ -352,6 +430,43 @@ def test_upstream_map(case, tmp_path):
     assert t_out.shape == j_out.shape
     np.testing.assert_allclose(t_out, j_out,
                                atol=1e-4 * float(np.abs(j_out).max()))
+
+
+def test_registry_matches_flair_tpu():
+    """The port registers every model name the JAX package registers, and
+    no other."""
+    from flair_tpu.models.registry import list_models as j_list
+    from flair_tpu_torch.models.registry import get_model, list_models
+
+    assert list_models() == j_list()
+    assert type(get_model("spynet")).__name__ == "SPyNet"
+
+
+@pytest.mark.parametrize("name", ["vqfr", "restoreformer", "vqvaegan"])
+def test_load_params_face_priors_at_the_defaults(tmp_path, name):
+    """``load_params`` on an upstream checkpoint of each face prior at the
+    reference's configuration (VQVAEGAN: the RestoreFormer map without the
+    cross attention's norm2): every name and shape loads strictly into the
+    registry model. Zeros in the flax model's shapes, so only the names
+    and shapes are checked."""
+    from flair_tpu.models.registry import get_model as j_get_model
+    from flair_tpu_torch.models.registry import get_model
+
+    shapes = jax.eval_shape(j_get_model(name).init, jax.random.PRNGKey(0),
+                            jnp.zeros((1, 512, 512, 3)))
+    flat = flatten_params(jax.tree_util.tree_map(
+        lambda v: np.zeros(v.shape, np.float32), shapes))
+    inv = InverseReader(flat)
+    if name == "vqfr":
+        tconvert.vqfr_names(inv)
+    else:
+        tconvert.restoreformer_names(inv, cross=name == "restoreformer")
+    assert inv.used == set(flat)
+    path = str(tmp_path / f"{name}.pth")
+    torch.save({k: torch.from_numpy(v) for k, v in inv.state_dict().items()},
+               path)
+    get_model(name).load_state_dict(tckpt.load_params(path, name),
+                                    strict=True)
 
 
 def test_load_params_npz_and_errors(tmp_path):

@@ -134,6 +134,35 @@ def test_cli_plumbing_matches_flair_tpu(tmp_path, monkeypatch, case):
         assert "frames_1/0000.png" in t["files"]
 
 
+def test_build_face_stack_takes_the_task(monkeypatch):
+    """``build_face_stack(task, ...)`` as the JAX CLI calls it
+    (flair_tpu/cli.py:110); the task is not read. Small models stand in
+    for the full-width ones."""
+    from flair_tpu_torch import cli
+    from flair_tpu_torch.models.codeformer import CodeFormer
+    from flair_tpu_torch.models.parsenet import ParseNet
+    from flair_tpu_torch.models.retinaface import RetinaFace
+
+    monkeypatch.setattr(cli, "RetinaFace",
+                        lambda network: RetinaFace(network="mobile0.25"))
+    monkeypatch.setattr(cli, "CodeFormer",
+                        lambda dtype: CodeFormer(**FACE_CF_KW, dtype=dtype))
+    monkeypatch.setattr(cli, "ParseNet",
+                        lambda dtype: ParseNet(**FACE_PN_KW, dtype=dtype))
+    faces = torch.zeros(1, 64, 64, 3)
+    outs = []
+    for task in ("x8_bicubic", "gaussian"):
+        helper, cf, pn = cli.build_face_stack(task, checkpoint_dir=None,
+                                              output_size=64, device="cpu")
+        assert helper.face_size == 64
+        with torch.no_grad():
+            outs.append((cf(faces), pn(faces)))
+    assert outs[0][0].shape == (1, 64, 64, 3)
+    assert outs[0][1].shape == (1, 64, 64, 19)
+    for a, b in zip(*outs):
+        assert torch.equal(a, b)
+
+
 def test_cli_rejects_bad_input(tmp_path, monkeypatch):
     from flair_tpu_torch import cli
 

@@ -3,7 +3,7 @@
 Schedule tables and respacing (exact / f32-rounding), ``p_sample`` under
 both update rules with injected noise, the guided loop with a stub
 denoiser fed the same noise in both packages, SRConv ``A`` / ``A_pinv``
-at ×8 and ×16, the LEARNED_RANGE moments of a 6-channel output,
+at ×8 and ×16 and ``A_pinv_eta``, the LEARNED_RANGE moments of a 6-channel output,
 ``scale_timesteps`` and the gaussian/jpeg restore closure — all ≤1e-5
 absolute in float32.
 """
@@ -140,6 +140,18 @@ def test_srconv_a_and_pinv(task):
     np.testing.assert_allclose(op_t.A_pinv(torch.from_numpy(y)).numpy(),
                                np.asarray(op_j.A_pinv(jnp.asarray(y))),
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("eta", [0.1, 1.0])
+def test_srconv_a_pinv_eta(eta):
+    """The regularised pseudo-inverse s / (s² + η) on the singular
+    coordinates (flair_tpu/operators/svd_ops.py:67-72)."""
+    op_t = t_get_operator("x8_bicubic", 64, device="cpu")
+    op_j = j_get_operator("x8_bicubic", 64)
+    y = rand(7, 2, 8 * 8 * 3)
+    np.testing.assert_allclose(
+        op_t.A_pinv_eta(torch.from_numpy(y), eta).numpy(),
+        np.asarray(op_j.A_pinv_eta(jnp.asarray(y), eta)), atol=ATOL)
 
 
 @pytest.mark.parametrize("entry", ["get_operator", "get_operator_gaussian",

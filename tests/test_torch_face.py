@@ -168,7 +168,8 @@ def test_make_face_fn_p(case):
     base = np.stack([np.asarray(MATRICES["bench"], np.float32),
                      np.asarray(MATRICES["rot20"], np.float32)])
     mats = base if case == "tiled" else np.stack([base, base[::-1] * 0.97])
-    kw = dict(face_size=s, aligned=case == "aligned")
+    # JAX's keywords, fidelity_w included (neither package reads it)
+    kw = dict(face_size=s, fidelity_w=0.5, aligned=case == "aligned")
     fn_t = thelper.make_face_fn_p(
         stub_codeformer, None if case == "no_parse" else stub_parsenet(torch),
         **kw)
@@ -182,7 +183,8 @@ def test_make_face_fn_p(case):
     assert not np.allclose(out, x0, atol=1e-3)   # the face was pasted
     if case == "tiled":   # make_face_fn binds the same matrices
         fixed = thelper.make_face_fn(mats, stub_codeformer,
-                                     stub_parsenet(torch), face_size=s)
+                                     stub_parsenet(torch), face_size=s,
+                                     fidelity_w=0.5)
         np.testing.assert_array_equal(
             fixed(torch.from_numpy(x0), torch.from_numpy(xt)).numpy(), out)
 

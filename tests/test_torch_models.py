@@ -64,6 +64,31 @@ def test_spynet():
     assert rel_err(t_out.permute(0, 2, 3, 1), j_out) < RTOL
 
 
+def test_compute_flow_bidirectional():
+    """Both directions' flows of a 3-frame clip in [-1, 1] (clamped to
+    [0, 1] first; values past the range included), through
+    ``get_model("spynet")`` (registered in both packages)."""
+    from flair_tpu.models.registry import get_model as j_get_model
+    from flair_tpu.models.spynet import compute_flow_bidirectional as j_flows
+    from flair_tpu_torch.models.registry import get_model
+    from flair_tpu_torch.models.spynet import compute_flow_bidirectional
+
+    rng = np.random.default_rng(2)
+    base = rng.uniform(-1.1, 1.1, (1, 1, 32, 32, 3)).astype(np.float32)
+    lqs = np.concatenate([np.roll(base, s, axis=3) for s in (0, 1, 3)], 1)
+    jm = j_get_model("spynet")
+    flat = perturb(flatten_params(jax.jit(jm.init)(
+        jax.random.PRNGKey(0), lqs[:, 0], lqs[:, 1])), 3, 0.01)
+    j_fwd, j_bwd = jax.jit(lambda p, v: j_flows(jm, p, v))(
+        unflatten_params(flat), lqs)
+    tm = get_model("spynet")
+    tm.load_state_dict(from_flax(flat), strict=True)
+    with torch.no_grad():
+        fwd, bwd = compute_flow_bidirectional(tm, torch.from_numpy(lqs))
+    assert fwd.shape == bwd.shape == (1, 2, 32, 32, 2)
+    assert rel_err(fwd, j_fwd) < RTOL and rel_err(bwd, j_bwd) < RTOL
+
+
 def test_temporal_attention():
     from flair_tpu.models.temporal import TemporalAttention as JTA
     from flair_tpu_torch.models.temporal import TemporalAttention

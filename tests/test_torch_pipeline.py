@@ -200,8 +200,12 @@ def test_port_imports_neither_jax_nor_flair_tpu():
         "import flair_tpu_torch.utils.checkpoint\n"
         "import flair_tpu_torch.utils.config, flair_tpu_torch.face.align\n"
         "import flair_tpu_torch.face.misc\n"
+        "import flair_tpu_torch.models.vqfr, flair_tpu_torch.models.bisenet\n"
+        "import flair_tpu_torch.models.restoreformer\n"
+        "import flair_tpu_torch.models.yolov5face, flair_tpu_torch.ops.shuffle\n"
+        "import flair_tpu_torch.utils.locking\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'flair_tpu', 'cv2', 'PIL'))\n"
+        "('jax', 'jaxlib', 'flax', 'flair_tpu', 'cv2', 'PIL', 'yaml'))\n"
         "print(bad)\n"
         "sys.exit(1 if bad else 0)\n")
     r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
