@@ -3,9 +3,10 @@ each against its plain PyTorch version, and drives the port's main paths
 (x8_bicubic guided DDIM with the face prior on and off, gaussian) at full
 width on one card, then the entry point itself (``flair_tpu_torch.cli``,
 x8 with RetinaFace detection and jpeg, on PNG clips), training (with AMT
-densifying ``skip = 2`` clips), the frame interpolators and DAVSRNet, and
-the alternative face models (VQFR, RestoreFormer, VQVAEGAN, BiSeNet,
-YOLOv5-face).
+densifying ``skip = 2`` clips), the frame interpolators and DAVSRNet, the
+alternative face models (VQFR, RestoreFormer, VQVAEGAN, BiSeNet,
+YOLOv5-face), and the multi-device paths (frame-sharded restoration and
+data- / frame-parallel training, as ranks sharing the card).
 
     python3 chip_smoke.py                 # every phase, one card
     python3 chip_smoke.py --phases build,kernel_dcn,kernel_flash
@@ -102,13 +103,33 @@ Phases, one JSON line each (a record per shape for the kernels):
                K2 launch (the plain DCN in VQFR, plain attention), VQFR's
                plain-DCN ms a forward, YOLOv5-face's host decode + NMS of
                the PRIOR_DETS best-scoring anchors
+  sharded_small  slice_small's x8 and gaussian restores with windows of 4
+               (2 frames a rank) on SHARD_RANKS gloo ranks sharing this
+               card (cuda:0) and on one NCCL rank (NCCL takes no two ranks
+               on one card), f32, TF32 off, against one unsharded process:
+               every rank's clip within SHARDED_SMALL_TOL, K1 (and K2)
+               launched on every rank
+  sharded_full  slice_full's x8 model on one 10-frame 64² window → 512²,
+               ddim25, face off, unsharded, then split over SHARD_RANKS
+               gloo ranks (5 frames each) on the same noise: PSNR >
+               SHARDED_FULL_PSNR_DB, per rank ms a step, bytes gathered,
+               K1 launches (the unsharded count: every rank runs the whole
+               VSR++ recurrence), peak, each VSR++ site's gather timed alone
+  train_dp     train_full's remat x8 model, two steps at B = SHARD_RANKS,
+               T = 2, 512² in this process, then two data-parallel steps
+               through TrainRunner(mesh=) on SHARD_RANKS gloo ranks (B = 1
+               each, the same generator): the second steps' loss,
+               grad_norm and update against each other (TRAIN_DP_TOL), ms,
+               peak, K1, the gradient all-reduce timed alone; then one f32
+               step of the goldens' model on a (data 1 × frame 2) mesh
+               against the unsharded one, as slice_small_train
   profile_step (only when asked for) one denoiser call of each full-width
                model, one face call, and one call of each interp_full /
                davsr_full / priors_full model, under torch.profiler: device
                time by kernel and by class, idle share
 
-Then, on the lines before the last: one {"kernels": [...]} record and the
-card as nvidia-smi names it. The last line is the {"ok": ...} record.
+Then, on the lines before the last: the seconds each phase took, one
+{"kernels": [...]} record and the card as nvidia-smi names it. The last line is the {"ok": ...} record.
 With no CUDA device the script exits non-zero before printing any result.
 Nothing here imports JAX or the JAX package.
 """
@@ -120,6 +141,7 @@ import concurrent.futures
 import copy
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -129,9 +151,11 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from flair_tpu_torch import cli
@@ -160,6 +184,8 @@ from flair_tpu_torch.operators import SuperResolution
 from flair_tpu_torch.ops.attention import dot_product_attention, flash_attention
 from flair_tpu_torch.ops.dcn import deform_conv2d_raw
 from flair_tpu_torch.ops.deform import deform_conv2d_raw_plain
+from flair_tpu_torch.parallel import (
+    LocalWorld, all_gather_frames, make_mesh, shard_batch, sum_over_mesh_)
 from flair_tpu_torch.pipeline import video
 from flair_tpu_torch.pipeline.video import (
     TASK_CONFIGS, init_from_degraded, restore_video, rnn_input_for, scale_tau,
@@ -180,7 +206,8 @@ ALL_PHASES = ("device", "build", "kernel_dcn", "kernel_flash", "slice_small",
               "slice_small_interp", "train_full", "train_full_blur",
               "interp_full", "davsr_full", "slice_full",
               "slice_full_gaussian", "slice_full_face", "detector", "cli",
-              "slice_small_priors", "priors_full")
+              "slice_small_priors", "priors_full", "sharded_small",
+              "sharded_full", "train_dp")
 EXTRA_PHASES = ("profile_step",)
 ROOT = os.path.dirname(os.path.abspath(__file__))
 MEM_BW = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
@@ -321,6 +348,24 @@ PRIOR_TOL = 1e-5
 # threshold passes none or nearly all of the 16 128)
 PRIOR_SIZE = 512
 PRIOR_DETS = 200
+# multi-device phases: gloo ranks sharing this card (plus one NCCL rank in
+# sharded_small), each call joined within RANK_TIMEOUT seconds
+SHARD_RANKS = 2
+RANK_TIMEOUT = 600.0
+SHARD_WIN = 4            # sharded_small's windows: 2 frames a rank
+# max abs over the [0, 1] clip, sharded vs unsharded, f32 with TF32 off:
+# the sharded norms' one-pass moments (E[x²] − mean²) round differently
+# from the unsharded two passes, some 1e-5 after four DDIM steps
+SHARDED_SMALL_TOL = 1e-4
+SHARD_FULL_FRAMES = 10   # sharded_full: one window, 5 frames a rank
+SHARDED_FULL_PSNR_DB = 40.0   # tests/test_goldens.py:86-87's bar
+SHARD_TRAIN_T = 2        # train_dp: frames a clip, one clip a rank
+SMALL_FRAME_T = 4        # train_dp's f32 (data 1 × frame 2) step
+# train_dp, bf16 B = 2 in one process against B = 1 on each of two ranks:
+# loss and grad_norm relative error, and the relative L2 error of the
+# parameters' update (Adam's first update is ±lr where |g| ≫ eps, so the
+# L2 error counts sign flips of small gradients: 0.1 is 0.25 % of them)
+TRAIN_DP_TOL = {"rel_err": 1e-2, "update_rel_l2": 0.1}
 
 
 def emit(rec: dict) -> None:
@@ -838,13 +883,14 @@ def face_models(device, cf_kw, pn_kw, scale, dtype=torch.float32):
             Counted(wrap_parsenet(pn.to(device).eval())))
 
 
-def small_restore(device, face=False):
+def small_restore(device, face=False, win=3, mesh=None):
     """The CPU tests' configuration: goldens/x8_s64 weights and clip (5
-    frames, 8² → 64²), windows of 3 overlapping by 1, 4 DDIM steps, noise
-    from one numpy seed. With ``face``, the face prior is on in every step:
-    the SMALL_CF / SMALL_PN models at 0.1 (at 0.02 ParseNet gives one class
-    everywhere), FACE_MATRIX, VSR++ background weights 0.93. Returns the
-    restored (5, 64, 64, 3) clip."""
+    frames, 8² → 64²), windows of ``win`` (3) overlapping by 1, 4 DDIM
+    steps, noise from one numpy seed, under ``mesh`` if given. With
+    ``face``, the face prior is on in every step: the SMALL_CF / SMALL_PN
+    models at 0.1 (at 0.02 ParseNet gives one class everywhere),
+    FACE_MATRIX, VSR++ background weights 0.93. Returns the restored
+    (5, 64, 64, 3) clip."""
     gold, _, flat = golden("x8_s64")
     cfg = dataclasses.replace(TASK_CONFIGS["x8_bicubic"], output_size=64,
                               input_size=8, steps="ddim4")
@@ -864,16 +910,17 @@ def small_restore(device, face=False):
         np.load(os.path.join(gold, "degraded01.npy")), cfg,
         wrap_bicubic_model(d, model), diffusion=d,
         guidance=GuidanceConfig(use_aux=face, w=cfg.w, rho=cfg.rho, tau=0),
-        win=3, overlap=1, sampler="ddim", device=device,
+        win=win, overlap=1, sampler="ddim", device=device,
         noise_fn=lambda shape: rng.standard_normal(shape).astype(np.float32),
-        **kw)
+        mesh=mesh, **kw)
 
 
-def small_blur_restore(task, device):
+def small_blur_restore(task, device, win=3, mesh=None):
     """The gaussian / jpeg CPU tests' configuration: goldens/<task>_s64
     weights and clip (5 frames, 16² → 64²) with 32-channel attention heads
-    (so K2 has an instance), windows of 3 overlapping by 1, 4 DDIM steps,
-    numpy-seeded noise. Returns the restored (5, 64, 64, 3) clip."""
+    (so K2 has an instance), windows of ``win`` (3) overlapping by 1, 4
+    DDIM steps, numpy-seeded noise, under ``mesh`` if given. Returns the
+    restored (5, 64, 64, 3) clip."""
     gold, meta, flat = golden(f"{task}_s64")
     cfg = dataclasses.replace(
         TASK_CONFIGS[task], output_size=64, input_size=16, steps="ddim4",
@@ -892,8 +939,9 @@ def small_blur_restore(task, device):
         guidance=GuidanceConfig(use_aux=False, w=cfg.w, rho=cfg.rho,
                                 tau=cfg.tau, zeta=cfg.zeta,
                                 noise_level=cfg.noise_level),
-        win=3, overlap=1, sampler="ddim", device=device,
-        noise_fn=lambda shape: rng.standard_normal(shape).astype(np.float32))
+        win=win, overlap=1, sampler="ddim", device=device,
+        noise_fn=lambda shape: rng.standard_normal(shape).astype(np.float32),
+        mesh=mesh)
 
 
 def cuda_vs_cpu(restore, name):
@@ -1339,12 +1387,13 @@ def bad_gradients(grads) -> dict:
     return {k: v for k, v in bad.items() if v is not None}
 
 
-def x8_train_batch(frames, dev):
-    """train_full's batch: ``low_res_input`` the bicubic ×8 upsample of a
-    seeded 64² clip, ``x_start`` it plus noise at 0.1, clamped; and the
-    generator, drawn on."""
+def x8_train_batch(frames, dev, clips=1):
+    """train_full's batch: ``low_res_input`` the bicubic ×8 upsample of
+    ``clips`` seeded 64² clips, ``x_start`` it plus noise at 0.1, clamped;
+    and the generator, drawn on."""
     gen = torch.Generator(dev).manual_seed(1)
-    clip64 = torch.rand((1, frames, 64, 64, 3), generator=gen, device=dev)
+    clip64 = torch.rand((clips, frames, 64, 64, 3), generator=gen,
+                        device=dev)
     low = init_from_degraded(clip64, TASK_CONFIGS["x8_bicubic"])
     x_start = torch.clamp(low + 0.1 * torch.randn(low.shape, generator=gen,
                                                   device=dev), -1, 1)
@@ -2122,6 +2171,365 @@ def phase_slice_full_face(ctx):
              lambda d: wrap_bicubic_model(d, model), clip, face=face)
 
 
+# ------------------------------------------------------- multi-device ----
+# Ranks are LocalWorld processes on this card (gloo ranks share cuda:0;
+# NCCL takes no two ranks on one card, so it runs as a world of one). They
+# import this file and run the module-level rank_* functions below.
+
+
+def world(ctx, backend="gloo", n=SHARD_RANKS):
+    """The run's world of ``n`` ``backend`` ranks, started on first use
+    (main closes it). This process's cached device memory is released
+    first: the ranks allocate on the same card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    worlds = ctx.setdefault("worlds", {})
+    if (backend, n) not in worlds:
+        init = os.path.join(ctx["tmp"], f"init_{backend}_{n}")
+        worlds[(backend, n)] = LocalWorld(n, init, backend=backend,
+                                          timeout=RANK_TIMEOUT)
+    return worlds[(backend, n)]
+
+
+def close_world(ctx, backend, n):
+    ctx.get("worlds", {}).pop((backend, n)).close()
+
+
+def frame_mesh():
+    return make_mesh(None, axes=("frame",), shape=(dist.get_world_size(),))
+
+
+def no_tf32():
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+def small_sharded_restore(task, device, mesh=None):
+    """sharded_small's restore of ``task``: the small x8 / gaussian
+    configuration with windows of SHARD_WIN (2 frames a rank)."""
+    if task == "x8_bicubic":
+        return small_restore(device, win=SHARD_WIN, mesh=mesh)
+    return small_blur_restore(task, device, win=SHARD_WIN, mesh=mesh)
+
+
+def rank_small_restore(task):
+    """sharded_small on a rank: f32, TF32 off, on cuda:0 under a frame mesh
+    of the whole world: (clip, K1 / K2 launches, bytes gathered)."""
+    no_tf32()
+    mesh = frame_mesh()
+    deform_conv2d_raw.launches = flash_attention.launches = 0
+    all_gather_frames.bytes = 0
+    out = small_sharded_restore(task, "cuda", mesh)
+    return out, {"dcn_raw": deform_conv2d_raw.launches,
+                 "flash_attn": flash_attention.launches}, \
+        all_gather_frames.bytes
+
+
+def phase_sharded_small(ctx):
+    """The small x8 and gaussian restores (f32, TF32 off, windows of
+    SHARD_WIN) on SHARD_RANKS gloo ranks sharing this card, each rank on
+    its 2 frames, and through the same sharded code on one NCCL rank,
+    against one unsharded process on the card: every rank's clip within
+    SHARDED_SMALL_TOL, K1 (and, gaussian, K2) launched on every rank."""
+    no_tf32()
+    bad = []
+    for task in ("x8_bicubic", "gaussian"):
+        want = small_sharded_restore(task, "cuda")
+        for backend, n in (("gloo", SHARD_RANKS), ("nccl", 1)):
+            t0 = time.time()
+            outs = world(ctx, backend, n).run(rank_small_restore, task)
+            secs = time.time() - t0
+            rec = {"phase": "sharded_small", "task": task,
+                   "backend": backend, "ranks": n,
+                   "max_abs_err": [float(np.abs(o - want).max())
+                                   for o, _, _ in outs],
+                   "tol": SHARDED_SMALL_TOL,
+                   "launches": [c for _, c, _ in outs],
+                   "bytes_gathered": [b for _, _, b in outs],
+                   "seconds": round(secs, 3)}
+            emit(rec)
+            need_k2 = task != "x8_bicubic"
+            launched = all(c["dcn_raw"] > 0 and (c["flash_attn"] > 0
+                                                 or not need_k2)
+                           for c in rec["launches"])
+            if not (launched and max(rec["max_abs_err"])
+                    <= SHARDED_SMALL_TOL):
+                bad.append(rec)
+    close_world(ctx, "nccl", 1)
+    torch.backends.cudnn.allow_tf32 = True
+    if bad:
+        raise AssertionError(f"sharded_small failed its checks: {bad}")
+
+
+def full_x8(use_checkpoint=False, seed=0):
+    """The x8 BicubicUNet at the registry defaults, seeded random weights
+    at 0.02, bf16 trunk, on the card."""
+    model = get_model("bicubic_unet", dtype=torch.bfloat16,
+                      use_checkpoint=use_checkpoint)
+    model.random_init(seed=seed, scale=0.02)
+    return model.to("cuda")
+
+
+def full_window_restore(model, clip, mesh=None):
+    """One SHARD_FULL_FRAMES-frame window of x8 guided DDIM-25 at 512²,
+    face off, noise from a seeded cuda generator: (clip, seconds, K1
+    launches, peak GiB), every count set to 0 just before the run."""
+    dev = torch.device("cuda")
+    base = TASK_CONFIGS["x8_bicubic"]
+    d = make_task_diffusion(base.task, FULL_STEPS, device=dev)
+    cfg = dataclasses.replace(base, steps=FULL_STEPS)
+    apply = wrap_bicubic_model(d, model)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    deform_conv2d_raw.launches = flash_attention.launches = 0
+    all_gather_frames.bytes = 0
+    t0 = time.time()
+    out = restore_video(clip, cfg, apply, diffusion=d, sampler="ddim",
+                        device=dev, mesh=mesh,
+                        generator=torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    return (out, time.time() - t0,
+            {"dcn_raw": deform_conv2d_raw.launches,
+             "flash_attn": flash_attention.launches},
+            torch.cuda.max_memory_allocated() / 2 ** 30)
+
+
+def gather_ms(group, shape, reps=3):
+    """ms of one ``all_gather_frames`` of a bf16 ``shape`` block (a VSR++
+    site's hidden state) over ``group``, from host to host."""
+    x = torch.zeros(shape, dtype=torch.bfloat16, device="cuda")
+    all_gather_frames(x, group, 1)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        all_gather_frames(x, group, 1)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def rank_full_restore(clip):
+    """sharded_full on a rank: the full x8 window under a frame mesh of
+    the whole world, then each VSR++ site's gather timed alone."""
+    mesh = frame_mesh()
+    model = full_x8().eval()
+    out, secs, launches, peak = full_window_restore(model, clip, mesh)
+    gathered = all_gather_frames.bytes
+    tl = clip.shape[0] // dist.get_world_size()
+    group = mesh.get_group("frame")
+    sites = {f"{res}x{c}": gather_ms(group, (1, tl, res, res, c))
+             for res, c in ((512, 64), (256, 128))}
+    return out, secs, launches, peak, gathered, sites
+
+
+def phase_sharded_full(ctx):
+    """The x8 BicubicUNet at the registry defaults (bf16, random at 0.02):
+    one SHARD_FULL_FRAMES-frame 64² window restored to 512² by x8 guided
+    DDIM-25, face off, unsharded here, then on SHARD_RANKS gloo ranks
+    sharing this card with SHARD_FULL_FRAMES / SHARD_RANKS frames each, on
+    the same noise: each rank's clip > SHARDED_FULL_PSNR_DB against the
+    unsharded one, K1 launched the unsharded count on every rank (each
+    runs the whole VSR++ recurrence); per rank ms a step, bytes gathered a
+    step, peak memory, and each VSR++ site's gather timed alone."""
+    steps = int(FULL_STEPS[len("ddim"):])
+    clip = np.random.default_rng(0).uniform(
+        0, 1, (SHARD_FULL_FRAMES, 64, 64, 3)).astype(np.float32)
+    model = full_x8().eval()
+    want, secs, launches, peak = full_window_restore(model, clip)
+    del model
+    torch.cuda.empty_cache()
+    expect = {"dcn_raw": DCN_PER_STEP["slice_full"] * steps,
+              "flash_attn": 0}
+    ranks = world(ctx).run(rank_full_restore, clip)
+    sites = 3   # VSR++ sites at each of 512² and 256² (down 1, up 2)
+    rec = {"phase": "sharded_full", "steps": FULL_STEPS,
+           "frames": SHARD_FULL_FRAMES, "ranks": SHARD_RANKS,
+           "unsharded": {"ms_per_step": secs / steps * 1e3,
+                         "peak_gib": peak, "launches": launches},
+           "per_rank": [{"psnr_db_vs_unsharded": psnr(o, want),
+                         "ms_per_step": s / steps * 1e3,
+                         "bytes_gathered_per_step": b / steps,
+                         "launches": n, "peak_gib": pk,
+                         "gather_ms_by_site": g,
+                         "gather_ms_per_step": sites * sum(g.values())}
+                        for o, s, n, pk, b, g in ranks],
+           "min_psnr_db": SHARDED_FULL_PSNR_DB, "launches_expected": expect,
+           "card": ctx["smi"]}
+    emit(rec)
+    for r, pr in enumerate(rec["per_rank"]):
+        ctx["launches"][f"sharded_full/rank{r}"] = pr["launches"]
+    outs = [o for o, *_ in ranks]
+    if not (launches == expect
+            and all(pr["launches"] == expect for pr in rec["per_rank"])
+            and all(o.shape == want.shape and np.isfinite(o).all()
+                    for o in outs)
+            and all(pr["psnr_db_vs_unsharded"] > SHARDED_FULL_PSNR_DB
+                    for pr in rec["per_rank"])):
+        raise AssertionError(f"sharded_full failed its checks: {rec}")
+
+
+def full_dp_runner(model, tmp, mesh=None):
+    """A TrainRunner of ``model`` on the x8 training schedule (AdamW lr
+    TRAIN_LR, one EMA stream) with a seeded cuda generator, its log and
+    checkpoint directory under ``tmp``."""
+    dev = torch.device("cuda")
+    d = x8_train_diffusion(dev)
+    train_log.configure(os.path.join(tmp, "log"), format_strs=["json"])
+    return TrainRunner(d, wrap_bicubic_train(d, model),
+                       TrainConfig(lr=TRAIN_LR, ema_rates=(0.9999,)), model,
+                       ckpt_dir=os.path.join(tmp, "ckpt"), device=dev,
+                       log_interval=10 ** 9, save_interval=10 ** 9, mesh=mesh,
+                       generator=torch.Generator(dev).manual_seed(0))
+
+
+def flat_params(runner) -> torch.Tensor:
+    return torch.cat([p.detach().reshape(-1)
+                      for p in runner.state.params.values()])
+
+
+def warm_then_timed_step(runner, batch):
+    """A warm-up step, then a timed one: (its host metrics, its ms, its
+    launches, the warm-up's ms, the peak GiB of the timed step, the
+    parameters' update by the timed step, on the card)."""
+    warm = timed_step(runner, batch)
+    before = flat_params(runner)
+    torch.cuda.reset_peak_memory_stats()
+    host, ms, launches = timed_step(runner, batch)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return (host, ms, launches, warm[1], peak, flat_params(runner) - before)
+
+
+def rank_train_dp(batch, ref_path):
+    """train_dp on a rank: the full-width x8 model with remat (each rank
+    seeded differently: ``replicate_params`` gives them rank 0's weights)
+    taking two data-parallel steps on its share of ``batch`` through
+    ``TrainRunner(mesh=)``; the second step's loss, grad_norm and update
+    against the unsharded run's (``ref_path``), its ms, peak memory and K1
+    launches, and the gradient all-reduce timed alone."""
+    mesh = make_mesh(None, axes=("data",))
+    model = full_x8(use_checkpoint=True, seed=dist.get_rank())
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        runner = full_dp_runner(model, tmp, mesh)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        host, ms, launches, warm_ms, peak, update = warm_then_timed_step(
+            runner, batch)
+    ref = torch.load(ref_path)
+    ref_update = ref["update"].to(update.device)
+    grads = [torch.zeros_like(p) for p in runner.state.params.values()]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sum_over_mesh_(grads, mesh)
+    torch.cuda.synchronize()
+    return {"loss": float(host["loss"]), "grad_norm": float(host["grad_norm"]),
+            "rel_err": {k: abs(float(host[k]) - ref[k]) / abs(ref[k])
+                        for k in ("loss", "grad_norm")},
+            "update_rel_l2": float((update - ref_update).norm()
+                                   / ref_update.norm()),
+            "update_max_abs_err": float((update - ref_update).abs().max()),
+            "ms_per_step": ms, "warmup_ms": warm_ms, "peak_gib": peak,
+            "launches": launches, "runner_build_s": build_s,
+            "bytes_reduced_per_step": 4 * update.numel(),
+            "all_reduce_ms": (time.perf_counter() - t0) * 1e3}
+
+
+def small_train_inputs(frames):
+    """The goldens' x8 model (f32) and a fixed B = 1 batch, t and noise of
+    ``frames`` frames at 64²."""
+    _, _, flat = golden("x8_s64")
+    model = BicubicUNet(inner_channel=32, norm_groups=16, channel_mults=(1, 2),
+                        attn_res=(32,), vsrpp_res=(64,), image_size=64,
+                        num_frames=3, head_dim=8)
+    model.load_state_dict(from_flax_bicubic_unet(flat))
+    rng = np.random.default_rng(2)
+    x0, low = (np.tanh(rng.standard_normal((1, frames, 64, 64, 3)))
+               .astype(np.float32) for _ in range(2))
+    noise = rng.standard_normal((1, frames, 64, 64, 3)).astype(np.float32)
+    return model, {"x_start": x0, "low_res_input": low}, noise
+
+
+def small_frame_step(mesh=None):
+    """One ``make_train_step`` of the goldens' x8 model, f32, TF32 off, on
+    the card, B = 1, T = SMALL_FRAME_T, t and noise fixed, under ``mesh``
+    (``batch`` cut to this rank's frames): (state, metrics) on the CPU."""
+    no_tf32()
+    dev = torch.device("cuda")
+    model, batch, noise = small_train_inputs(SMALL_FRAME_T)
+    model.to(dev)
+    d = x8_train_diffusion(dev)
+    cfg = TrainConfig(lr=TRAIN_LR, ema_rates=(0.9999,))
+    state = create_train_state(dict(model.named_parameters()), cfg)
+    batch = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    if mesh is not None:
+        batch = shard_batch(mesh, batch)
+    state, met = make_train_step(d, wrap_bicubic_train(d, model), cfg,
+                                 mesh=mesh)(
+        state, batch, t=torch.tensor([700], device=dev),
+        noise=torch.as_tensor(noise, device=dev))
+    cpu = lambda v: {k: t.detach().cpu() for k, t in v.items()}  # noqa: E731
+    return (types.SimpleNamespace(params=cpu(state.params),
+                                  ema_params=(cpu(state.ema_params[0]),)),
+            {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+             "grads": cpu(met["grads"])})
+
+
+def rank_small_frame_step():
+    return small_frame_step(make_mesh(None, shape=(1, dist.get_world_size())))
+
+
+def phase_train_dp(ctx):
+    """Data- and frame-parallel training on SHARD_RANKS gloo ranks sharing
+    this card. (1) The x8 BicubicUNet at the registry defaults with remat
+    (bf16 trunk, float32 parameters), two steps at B = SHARD_RANKS, T =
+    SHARD_TRAIN_T, 512², through TrainRunner in this process, then freed;
+    then two steps on the ranks, B = 1 each (``TrainRunner(mesh=)``, the
+    same generator: the same global t and noise); the second steps
+    compared and timed: loss and grad_norm within TRAIN_DP_TOL relative,
+    the update's relative L2 error within TRAIN_DP_TOL. (2) One f32 step of the goldens' x8 model (TF32 off) on a
+    (data 1 × frame 2) mesh against the unsharded step, as
+    slice_small_train compares cuda with cpu."""
+    dev = torch.device("cuda")
+    batch, _ = x8_train_batch(SHARD_TRAIN_T, dev, clips=SHARD_RANKS)
+    model = full_x8(use_checkpoint=True)
+    # remat runs each level block's forward twice: 2 × 2 branches ×
+    # (T - 1) frames a VSR++ site, on every rank as unsharded
+    expect = {"dcn_raw": 2 * 2 * (SHARD_TRAIN_T - 1) * dcn_sites(model),
+              "flash_attn": 0}
+    runner = full_dp_runner(model, ctx["tmp"])
+    host, ms, launches, warm_ms, peak, update = warm_then_timed_step(
+        runner, batch)
+    ref_path = os.path.join(ctx["tmp"], "train_dp_ref.pt")
+    torch.save({"update": update.cpu(), "loss": float(host["loss"]),
+                "grad_norm": float(host["grad_norm"])}, ref_path)
+    del runner, model, host, update
+    torch.cuda.empty_cache()
+    host_batch = {k: v.cpu().numpy() for k, v in batch.items()}
+    ranks = world(ctx).run(rank_train_dp, host_batch, ref_path)
+    rec = {"phase": "train_dp", "model": "bicubic_unet (registry defaults, "
+           "use_checkpoint)", "global_batch": [SHARD_RANKS, SHARD_TRAIN_T,
+                                                512, 512, 3],
+           "unsharded": {"ms_per_step": ms, "warmup_ms": warm_ms,
+                         "peak_gib": peak, "launches": launches},
+           "per_rank": ranks, "tol": TRAIN_DP_TOL,
+           "launches_expected_per_rank": expect, "card": ctx["smi"]}
+    for r, pr in enumerate(ranks):
+        ctx["launches"][f"train_dp/rank{r}"] = pr["launches"]
+    ref_state, ref_met = small_frame_step()
+    rows = world(ctx).run(rank_small_frame_step)
+    rec["small_frame_step"] = [train_errors(st, met, ref_state, ref_met)
+                               for st, met in rows]
+    torch.backends.cudnn.allow_tf32 = True
+    emit(rec)
+    ok = (launches == expect
+          and all(pr["launches"] == expect for pr in ranks)
+          and all(max(pr["rel_err"].values()) <= TRAIN_DP_TOL["rel_err"]
+                  and pr["update_rel_l2"] <= TRAIN_DP_TOL["update_rel_l2"]
+                  for pr in ranks)
+          and all(train_ok(r) for r in rec["small_frame_step"]))
+    if not ok:
+        raise AssertionError(f"train_dp failed its checks: {rec}")
+
+
 def detector_pair(model):
     """The same ``RetinaFaceDetector`` weights on the cpu and on the card."""
     return {dev: RetinaFaceDetector(
@@ -2442,13 +2850,23 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
-    ctx: dict = {"profile": "profile_step" in phases}
-    for name in ["device"] + [p for p in phases if p != "device"]:
-        globals()[f"phase_{name}"](ctx)
+    ctx: dict = {"profile": "profile_step" in phases, "launches": {},
+                 "tmp": tempfile.mkdtemp()}
+    seconds = {}
+    try:
+        for name in ["device"] + [p for p in phases if p != "device"]:
+            t0 = time.time()
+            globals()[f"phase_{name}"](ctx)
+            seconds[name] = round(time.time() - t0, 3)
+    finally:
+        for w in ctx.get("worlds", {}).values():
+            w.close()
+        shutil.rmtree(ctx["tmp"], ignore_errors=True)
     launches = {"dcn_raw": {}, "flash_attn": {}}
     for path, counts in ctx.get("launches", {}).items():
         for kern, n in counts.items():
             launches[kern][path] = n
+    emit({"phase_seconds": seconds})
     kernels = []
     if "kernel_dcn" in phases:
         kernels.append(kernel_record(

@@ -18,6 +18,7 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..ops.norms import group_norm, shift_window_group_norm
+from ..parallel.halo import halo_exchange_frames
 
 
 def nhwc(x: torch.Tensor) -> torch.Tensor:
@@ -115,13 +116,16 @@ class BatchNorm(nn.Module):
 class Conv3d(nn.Module):
     """(kt, 1, 1)-style 3-D conv over the frames of (B·T, C, H, W): applied
     to the (B, C, T, H, W) view, which is channels_last_3d when the input
-    is channels_last — no copy."""
+    is channels_last — no copy. Under ``frame_group`` (frame-sharded clips)
+    the local frames take a ``kt // 2``-frame halo from their neighbours,
+    zero at the clip's ends as the unsharded padding is."""
 
     def __init__(self, in_ch: int, out_ch: int, kernel_size=(3, 1, 1),
                  zero_init: bool = False, dtype=torch.float32):
         super().__init__()
         self.kernel_size = tuple(kernel_size)
         self.dtype = dtype
+        self.frame_group = None
         self.weight = nn.Parameter(torch.zeros(out_ch, in_ch, *self.kernel_size))
         self.bias = nn.Parameter(torch.zeros(out_ch))
         if not zero_init:
@@ -130,9 +134,15 @@ class Conv3d(nn.Module):
     def forward(self, x: torch.Tensor, b: int) -> torch.Tensor:
         n, c, h, w = x.shape
         dt = self.dtype
-        v = x.to(dt).reshape(b, n // b, c, h, w).permute(0, 2, 1, 3, 4)
+        pad = [k // 2 for k in self.kernel_size]
+        x = x.to(dt)
+        if self.frame_group is not None:
+            x = halo_exchange_frames(x, pad[0], self.frame_group,
+                                     edge="zero", b=b)
+            pad[0] = 0
+        v = x.reshape(b, x.shape[0] // b, c, h, w).permute(0, 2, 1, 3, 4)
         y = F.conv3d(v, self.weight.to(dt), self.bias.to(dt),
-                     padding=tuple(k // 2 for k in self.kernel_size))
+                     padding=tuple(pad))
         return channels_last(y.permute(0, 2, 1, 3, 4).reshape(n, -1, h, w))
 
 
@@ -159,32 +169,40 @@ class Dense(nn.Module):
 class GroupNorm32(nn.Module):
     """GroupNorm with float32 statistics, JOINT over the frames of each clip:
     ``forward(x, b)`` with x (B·T, C, H, W). The group count is
-    gcd(num_groups, C), as in the JAX package."""
+    gcd(num_groups, C), as in the JAX package. Under ``frame_group`` the
+    statistics are joint over every rank's frames (JAX's ``axis_name``)."""
 
     def __init__(self, channels: int, num_groups: int = 32):
         super().__init__()
         self.num_groups = math.gcd(num_groups, channels)
+        self.frame_group = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor, b: int) -> torch.Tensor:
         n, c, h, w = x.shape
         v = nhwc(x).reshape(b, n // b, h, w, c)
-        y = group_norm(v, self.num_groups, self.weight, self.bias)
+        y = group_norm(v, self.num_groups, self.weight, self.bias,
+                       group=self.frame_group)
         return nchw(y.reshape(n, h, w, c))
 
 
 class ShiftWindowGroupNorm(nn.Module):
-    """Temporally windowed group norm of (B·T, C, H, W) (nn.py:657-748)."""
+    """Temporally windowed group norm of (B·T, C, H, W) (nn.py:657-748).
+    Not frame-shardable: under a ``frame_group`` it raises, as the JAX
+    package asserts (temporal.py:62-65)."""
 
     def __init__(self, channels: int, win_size: int, num_groups: int = 32):
         super().__init__()
         self.win_size = win_size
         self.num_groups = num_groups
+        self.frame_group = None
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
     def forward(self, x: torch.Tensor, b: int) -> torch.Tensor:
+        if self.frame_group is not None:
+            raise ValueError("shift_window_norm is not frame-shardable")
         n, c, h, w = x.shape
         v = nhwc(x).reshape(b, n // b, h, w, c)
         y = shift_window_group_norm(v, self.num_groups, self.win_size,

@@ -17,6 +17,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.attention import temporal_window_attention
+from ..parallel.halo import halo_exchange_frames
 from .common import Conv2d, Dense, GroupNorm32, ShiftWindowGroupNorm, nchw, nhwc, silu
 
 
@@ -34,7 +35,11 @@ def _relative_embedding(f: int, c: int) -> np.ndarray:
 
 class TemporalAttention(nn.Module):
     """Windowed centre-frame temporal attention; returns x + zero-init
-    projection of the attention output."""
+    projection of the attention output. Under ``frame_group``
+    (temporal.py:61-75,110-113): the norm's statistics are joint over every
+    rank's frames (its own ``frame_group``), the normalised block takes an
+    ``f // 2``-frame halo from its neighbours (the clip's ends replicated,
+    as the unsharded window pads), attends, and drops the halo outputs."""
 
     def __init__(self, channels: int, num_frames: int = 5, num_heads: int = 1,
                  num_head_channels: int = -1, norm_type: str = "group_norm",
@@ -45,6 +50,7 @@ class TemporalAttention(nn.Module):
         self.num_frames = num_frames
         self.heads = num_heads if num_head_channels == -1 else c // num_head_channels
         self.dtype = dtype
+        self.frame_group = None
         if norm_type == "group_norm":
             self.norm = GroupNorm32(c, 32)
         elif norm_type == "shift_window_norm":
@@ -65,16 +71,21 @@ class TemporalAttention(nn.Module):
     def forward(self, x, b: int):
         n, c, hh, ww = x.shape
         dt = self.dtype
+        p = self.num_frames // 2
         h = x if self.norm is None else self.norm(x, b)
-        hv = nhwc(h)                                    # (N, H, W, C)
+        if self.frame_group is not None:
+            h = halo_exchange_frames(h, p, self.frame_group, b=b)
+        hv = nhwc(h)                                    # (N', H, W, C)
         q = self.q_linear(hv + self.t_mid.to(dt))
         k = self.k_linear(hv)
         v = self.v_linear(hv)
         zero = torch.zeros((1, c), dtype=dt, device=x.device)
         k_pos = self.k_linear(self.t_rest.to(dt)) - self.k_linear(zero)
-        five = lambda a: a.reshape(b, n // b, hh, ww, c)  # noqa: E731
+        five = lambda a: a.reshape(b, -1, hh, ww, c)  # noqa: E731
         out = temporal_window_attention(five(q), five(k), five(v), k_pos,
                                         self.num_frames, self.heads)
+        if self.frame_group is not None and p:
+            out = out[:, p:-p]
         return x + self.proj(nchw(out.reshape(n, hh, ww, c)))
 
 

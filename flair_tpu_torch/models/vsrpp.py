@@ -21,12 +21,14 @@ from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.dcn import deform_conv2d_raw
 from ..ops.resize import resize_matrix
 from ..ops.warp import flow_warp
+from ..parallel.collectives import all_gather_frames
 from .common import Conv2d, _lecun_, channels_last, leaky_relu, nchw, nhwc
 from .registry import register_model
 
@@ -248,7 +250,13 @@ class BasicVSRPP(nn.Module):
 
     ``forward(hidden, b, flows_forward, flows_backward, weight=None,
     flows_forward2=None, flows_backward2=None)``; hidden (B·T, C, H, W);
-    returns hidden + zero-init conv(reconstruction(cat(hidden, bwd, fwd)))."""
+    returns hidden + zero-init conv(reconstruction(cat(hidden, bwd, fwd))).
+
+    Under ``frame_group`` hidden and weight hold this rank's frames and the
+    flows the whole clip's: the recurrence is sequential over frames, so the
+    hidden state and the weights are all-gathered, both branches run over
+    the whole clip on every rank (K1's launches a rank are the unsharded
+    call's), and the reconstruction runs on the rank's frames."""
 
     def __init__(self, features: int, max_residue_magnitude: float = 10.0,
                  deform_groups: int = 16, dtype=torch.float32):
@@ -257,6 +265,7 @@ class BasicVSRPP(nn.Module):
         self.max_residue_magnitude = max_residue_magnitude
         self.deform_groups = deform_groups
         self.dtype = dtype
+        self.frame_group = None
         self.backward_1 = _BranchParams(c, 2 * c, deform_groups)
         self.forward_1 = _BranchParams(c, 3 * c, deform_groups)
         self.reconstruction = ResidualBlocksWithInputConv(3 * c, c, 1, dtype)
@@ -264,6 +273,11 @@ class BasicVSRPP(nn.Module):
 
     def forward(self, hidden, b: int, flows_forward, flows_backward,
                 weight=None, flows_forward2=None, flows_backward2=None):
+        group, local = self.frame_group, hidden
+        if group is not None:
+            hidden = _gather_nchw(hidden, b, group)
+            if weight is not None:
+                weight = all_gather_frames(weight, group, 1)
         n, c, h, w = hidden.shape
         t = n // b
         if weight is None:
@@ -293,5 +307,23 @@ class BasicVSRPP(nn.Module):
         fwd = _run_branch(self.forward_1, hidden, bwd,
                           torch.cat([zeros, flows_forward], 1),
                           flows_forward2, weight, range(t), b, **cfg)
+        if group is not None:
+            tl = local.shape[0] // b
+            lo = dist.get_rank(group) * tl
+
+            def mine(v):
+                v = v.reshape(b, t, c, h, w)[:, lo:lo + tl]
+                return channels_last(v.reshape(b * tl, c, h, w))
+
+            hidden, bwd, fwd = local, mine(bwd), mine(fwd)
         hr = self.reconstruction(torch.cat([hidden, bwd, fwd], dim=1))
         return hidden + self.conv_last(hr)
+
+
+def _gather_nchw(x, b: int, group):
+    """Every rank's frames of (B·T_local, C, H, W) → (B·T, C, H, W)
+    channels_last, gathered in the NHWC layout (a view for channels_last
+    input)."""
+    n, c, h, w = x.shape
+    v = all_gather_frames(nhwc(x).reshape(b, n // b, h, w, c), group, 1)
+    return nchw(v.reshape(-1, h, w, c))

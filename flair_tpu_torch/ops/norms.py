@@ -5,25 +5,38 @@ nn.py:652-654, and ShiftWindowGroupNorm32, nn.py:657-748). Both take
 channels-last views (B, ..., C) — for the port's NCHW channels_last
 activations that is ``x.permute(0, 2, 3, 1)`` reshaped to (B, T, H, W, C),
 a free view — and return the input dtype with statistics, weight and bias
-applied in float32.
+applied in float32. Under a frame group (``group_norm(group=)``, frame-
+sharded clips) the statistics are joint over every rank's frames.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..parallel.collectives import all_reduce_mean
+
 
 def group_norm(x: torch.Tensor, num_groups: int, weight=None, bias=None,
-               eps: float = 1e-5) -> torch.Tensor:
+               eps: float = 1e-5, group=None) -> torch.Tensor:
     """GroupNorm over (B, ..., C): statistics per batch element over every
     remaining dim × (C/G) — for a (B, T, H, W, C) video JOINT over frames,
-    the reference's LazyReshaper3D(GroupNorm32) convention."""
+    the reference's LazyReshaper3D(GroupNorm32) convention. ``group``: the
+    frames are sharded over this process group, and the statistics are
+    joint over all of them (norms.py:43-47)."""
     orig_dtype = x.dtype
     xf = x.float()
     shape = xf.shape
     b, c = shape[0], shape[-1]
     xg = xf.reshape(b, -1, num_groups, c // num_groups)
-    var, mean = torch.var_mean(xg, dim=(1, 3), keepdim=True, correction=0)
+    if group is None:
+        var, mean = torch.var_mean(xg, dim=(1, 3), keepdim=True, correction=0)
+    else:
+        # ranks hold equal frame counts, so the mean of the local moments is
+        # the global moment; one all-reduce carries both
+        moments = torch.stack([xg.mean(dim=(1, 3), keepdim=True),
+                               (xg * xg).mean(dim=(1, 3), keepdim=True)])
+        mean, m2 = all_reduce_mean(moments, group).unbind(0)
+        var = m2 - mean * mean
     out = ((xg - mean) * torch.rsqrt(var + eps)).reshape(shape)
     if weight is not None:
         out = out * weight.float()

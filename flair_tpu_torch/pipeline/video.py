@@ -20,7 +20,8 @@ scripts/video_sample.py:265-497):
 
 The window loop and the step loop are plain Python (the JAX package's
 "steps" two-program dispatch and its scan forms collapse into one loop
-here). Multi-device meshes are not in this package yet.
+here). Under a mesh (``restore_video(mesh=)``) each window's frames are
+split over the mesh's frame axis (``parallel``).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from ..diffusion.sampler import (
 from ..face.helper import make_face_fn_p
 from ..operators.factory import BLUR_TASKS, get_operator, make_restore_fn_p
 from ..ops.resize import resize_area, resize_bicubic
+from ..parallel import all_gather_frames, axis_size, set_frame_group
 from ..utils.device import resolve_device
 
 FRAME_SLICE_LEN = 10
@@ -156,6 +158,8 @@ def restore_video(
     face_helper=None,
     codeformer_apply=None,
     parsenet_apply=None,
+    mesh=None,
+    frame_axis: str = "frame",
 ) -> np.ndarray:
     """Restore a clip window by window.
 
@@ -176,9 +180,28 @@ def restore_video(
     (``wrappers.wrap_codeformer`` / ``wrap_parsenet``). A window where any
     clip has no face runs without it. With ``parsenet_apply`` and
     ``cfg.vsrpp_bg_weight > 0`` the denoiser gets VSR++ weights:
-    ``vsrpp_bg_weight`` on ParseNet's background class, 1 elsewhere."""
+    ``vsrpp_bg_weight`` on ParseNet's background class, 1 elsewhere.
+
+    ``mesh``: a ``parallel.make_mesh`` mesh; every rank calls with the same
+    arguments and returns the whole clip (video.py:235-252). In each window
+    whose length the ``frame_axis`` size n divides, a rank runs the
+    denoiser, the consistency step and the face prior on its tw / n frames
+    (the model's frame group set: joint norms, halos, VSR++ gathers);
+    SPyNet's flows, the noise, the face matrices and the VSR++ weights are
+    computed for the whole window on every rank and cut, so the run draws
+    noise as the unsharded one does, and each window's sample is gathered
+    before stitching. Other windows run whole on every rank, as JAX leaves
+    those tensors unsharded. Needs ``model_apply.model``."""
     if sampler not in ("steps", "ddim"):
         raise ValueError(f"unknown sampler: {sampler!r}")
+    model = None
+    if mesh is not None:
+        model = getattr(model_apply, "model", None)
+        if model is None:
+            raise ValueError("restore_video(mesh=) needs a denoiser wrapped "
+                             "by pipeline.wrappers (model_apply.model)")
+        n_frame = axis_size(mesh, frame_axis)
+        frame_group = mesh.get_group(frame_axis)
     dev = resolve_device(device)
     d = diffusion or make_task_diffusion(cfg.task, cfg.steps, device=dev)
     operator = get_operator(cfg.task, cfg.output_size, device=dev)
@@ -200,64 +223,91 @@ def restore_video(
                                    face_size=cfg.output_size)
     outputs = [None] * t_all
     prev_recon = None  # (B, overlap, H, W, 3) tail of the previous window
-    for start, length in window_slices(t_all, win, overlap):
-        sl = frames[:, start:start + length]
-        if pad_tail and length < win:
-            sl = torch.cat([sl, sl[:, -1:].expand(
-                nclips, win - length, *sl.shape[2:])], dim=1)
-        tw = sl.shape[1]
-        init = init_from_degraded(sl, cfg)
-        low_res = init
-        rnn_input = rnn_input_for(sl, init, cfg)
-        degraded_pm1 = (sl * 2.0 - 1.0).reshape(nclips * tw, *sl.shape[2:])
-        noise = draw_noise(init.shape, init, generator, noise_fn)
-        t_init = d.num_timesteps - 1 if cfg.t_start == -1 else cfg.t_start
-        x_t = q_sample(d, init, t_init, noise)
-        pin_mask = pin_values = None
-        if prev_recon is not None:
-            pin_mask = torch.zeros((1, tw, 1, 1, 1), dtype=torch.bool,
-                                   device=dev)
-            pin_mask[:, :overlap] = True
-            pin_values = torch.zeros_like(x_t)
-            pin_values[:, :overlap] = prev_recon
-        flows = None if flows_fn is None else flows_fn(rnn_input)
-        # x8/x16: down-weight VSR++ propagation on the parsed background
-        # (video_sample.py:427-444)
-        vsrpp_weights = None
-        if cfg.vsrpp_bg_weight > 0 and parsenet_apply is not None:
-            logits = parsenet_apply(init.reshape(nclips * tw, *init.shape[2:]))
-            bg = (torch.argmax(logits, dim=-1) == 0).float()[..., None]
-            vsrpp_weights = (bg * cfg.vsrpp_bg_weight + (1.0 - bg)).reshape(
-                nclips, tw, *bg.shape[1:])
-        # face matrices once per window on the init frames
-        # (video_sample.py:446-448)
-        face_args = () if face_fn is not None else None
-        if (face_fn is None and face_helper is not None
-                and codeformer_apply is not None):
-            mats = [_fill_missing_matrices(face_helper.get_affine_matrices(
-                        ((init[i] + 1.0) / 2.0).float().cpu().numpy(),
-                        only_keep_largest=True, eye_dist_threshold=0.1))
-                    for i in range(nclips)]
-            if all(m is not None for m in mats):
-                face_args = (torch.as_tensor(np.stack(mats), device=dev),)
-        g = guidance or GuidanceConfig(
-            w=cfg.w, rho=cfg.rho, noise_level=cfg.noise_level, zeta=cfg.zeta,
-            tau=cfg.tau, t_start=cfg.t_start, use_aux=face_args is not None)
-        update = make_guided_update(
-            d, g, restore_fn=restore_fn_p, face_fn=face_fn_p,
-            rule="ddim" if sampler == "ddim" else "ddpm", eta=eta)
+    try:
+        for start, length in window_slices(t_all, win, overlap):
+            sl = frames[:, start:start + length]
+            if pad_tail and length < win:
+                sl = torch.cat([sl, sl[:, -1:].expand(
+                    nclips, win - length, *sl.shape[2:])], dim=1)
+            tw = sl.shape[1]
+            # this rank's frames of the window and the group they are cut
+            # over (unsharded: all of them, no group)
+            mine, group = slice(None), None
+            if mesh is not None and tw % n_frame == 0:
+                tl = tw // n_frame
+                lo = mesh.get_local_rank(frame_axis) * tl
+                mine, group = slice(lo, lo + tl), frame_group
+            if model is not None:
+                set_frame_group(model, group)
+            init = init_from_degraded(sl, cfg)
+            low_res = init[:, mine]
+            rnn_input = rnn_input_for(sl, init, cfg)
+            degraded_pm1 = (sl[:, mine] * 2.0 - 1.0).reshape(
+                -1, *sl.shape[2:])
 
-        def model_fn(x, t):
-            return model_apply(x, t, low_res, rnn_input, vsrpp_weights, flows)
+            def window_noise(shape, like=init):
+                """The whole window's draw, cut to this rank's frames."""
+                return draw_noise(like.shape, like, generator,
+                                  noise_fn)[:, mine]
 
-        sample = guided_sample_steps(
-            d, model_fn, x_t, g, update=update, pin_mask=pin_mask,
-            pin_values=pin_values, restore_args=(degraded_pm1,),
-            face_args=face_args, generator=generator, noise_fn=noise_fn)
-        keep_from = overlap if prev_recon is not None else 0
-        recon = sample.float().cpu().numpy()
-        for i in range(keep_from, length):
-            outputs[start + i] = recon[:, i]
-        prev_recon = sample[:, length - overlap:length]
+            t_init = d.num_timesteps - 1 if cfg.t_start == -1 else cfg.t_start
+            x_t = q_sample(d, low_res, t_init, window_noise(None))
+            pin_mask = pin_values = None
+            if prev_recon is not None:
+                pin_mask = torch.zeros((1, tw, 1, 1, 1), dtype=torch.bool,
+                                       device=dev)
+                pin_mask[:, :overlap] = True
+                pin_values = torch.zeros_like(init)
+                pin_values[:, :overlap] = prev_recon
+                pin_mask, pin_values = pin_mask[:, mine], pin_values[:, mine]
+            flows = None if flows_fn is None else flows_fn(rnn_input)
+            # x8/x16: down-weight VSR++ propagation on the parsed background
+            # (video_sample.py:427-444)
+            vsrpp_weights = None
+            if cfg.vsrpp_bg_weight > 0 and parsenet_apply is not None:
+                logits = parsenet_apply(
+                    init.reshape(nclips * tw, *init.shape[2:]))
+                bg = (torch.argmax(logits, dim=-1) == 0).float()[..., None]
+                vsrpp_weights = (bg * cfg.vsrpp_bg_weight + (1.0 - bg)
+                                 ).reshape(nclips, tw, *bg.shape[1:])[:, mine]
+            # face matrices once per window on the init frames
+            # (video_sample.py:446-448); whether the window runs the face
+            # prior is decided on the whole window, so every rank agrees
+            face_args = () if face_fn is not None else None
+            if (face_fn is None and face_helper is not None
+                    and codeformer_apply is not None):
+                mats = [_fill_missing_matrices(face_helper.get_affine_matrices(
+                            ((init[i] + 1.0) / 2.0).float().cpu().numpy(),
+                            only_keep_largest=True, eye_dist_threshold=0.1))
+                        for i in range(nclips)]
+                if all(m is not None for m in mats):
+                    face_args = (torch.as_tensor(np.stack(mats),
+                                                 device=dev)[:, mine],)
+            g = guidance or GuidanceConfig(
+                w=cfg.w, rho=cfg.rho, noise_level=cfg.noise_level,
+                zeta=cfg.zeta, tau=cfg.tau, t_start=cfg.t_start,
+                use_aux=face_args is not None)
+            update = make_guided_update(
+                d, g, restore_fn=restore_fn_p, face_fn=face_fn_p,
+                rule="ddim" if sampler == "ddim" else "ddpm", eta=eta)
+
+            def model_fn(x, t):
+                return model_apply(x, t, low_res, rnn_input, vsrpp_weights,
+                                   flows)
+
+            sample = guided_sample_steps(
+                d, model_fn, x_t, g, update=update, pin_mask=pin_mask,
+                pin_values=pin_values, restore_args=(degraded_pm1,),
+                face_args=face_args, noise_fn=window_noise)
+            if group is not None:
+                sample = all_gather_frames(sample, group, 1)
+            keep_from = overlap if prev_recon is not None else 0
+            recon = sample.float().cpu().numpy()
+            for i in range(keep_from, length):
+                outputs[start + i] = recon[:, i]
+            prev_recon = sample[:, length - overlap:length]
+    finally:
+        if model is not None:
+            set_frame_group(model, None)
     out = np.clip((np.stack(outputs, axis=1) + 1.0) / 2.0, 0.0, 1.0)
     return out if batched else out[0]

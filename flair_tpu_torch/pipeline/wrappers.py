@@ -51,14 +51,16 @@ def wrap_bicubic_train(d: Diffusion, model):
     with ``train.make_train_step``, as the JAX package trains it
     (``__graft_entry__.py:168-174``): the noise level
     ``sr3_noise_level(d, t)`` of each frame's t, ``batch["low_res_input"]``
-    as the conditioning and as SPyNet's input. ``params`` (name → tensor)
-    stand in for the model's own, as ``model.apply(params, ...)`` does."""
+    as the conditioning and ``batch["rnn_input"]`` (default: the
+    conditioning) as SPyNet's input. ``params`` (name → tensor) stand in for
+    the model's own, as ``model.apply(params, ...)`` does."""
 
     def apply(params, x_t, ts, batch):
         lvl = sr3_noise_level(d, ts.reshape(-1)).reshape(ts.shape)
         low = batch["low_res_input"]
-        return torch.func.functional_call(model, params, (x_t, lvl, low),
-                                          {"rnn_input": low})
+        return torch.func.functional_call(
+            model, params, (x_t, lvl, low),
+            {"rnn_input": batch.get("rnn_input", low)})
 
     apply.model = model
     return apply

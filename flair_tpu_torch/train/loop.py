@@ -15,6 +15,16 @@ Counterpart of ``flair_tpu/train/loop.py`` (reference train_util.py:37-365):
 A step updates the parameters (the model's own tensors), the optimizer
 moments and the EMA streams in place. Randomness (t, noise) comes from an
 explicit ``torch.Generator``, or is injected.
+
+Under a mesh (``make_train_step(mesh=)``, every rank calling with its
+``parallel.shard_batch`` slice of the same global batch) the step is data-
+and frame-parallel: t and the noise are drawn for the global batch on every
+rank and cut, each rank's loss is its mean over its share divided by the
+mesh size (so the ranks' losses sum to the global loss and the collectives'
+adjoints are exact), and the gradients are summed over the mesh, flattened
+into one buffer, before the norm, the clip and AdamW; with a ``frame`` axis
+the model runs under its frame group and SPyNet reads the whole clip's
+``rnn_input`` (default ``low_res_input``), gathered over the frame axis.
 """
 
 from __future__ import annotations
@@ -28,6 +38,8 @@ import torch
 from ..diffusion import Diffusion, training_losses
 from ..diffusion.resample import uniform_sample
 from ..ops.ema import ema_update
+from ..parallel import (all_gather_frames, all_reduce_mean, axis_size,
+                        set_frame_group, shard, sum_over_mesh_)
 
 Params = Dict[str, torch.Tensor]
 
@@ -140,7 +152,8 @@ def _split(v, n: int):
     return v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:])).unbind(0)
 
 
-def make_train_step(d: Diffusion, apply_fn: Callable, cfg: TrainConfig):
+def make_train_step(d: Diffusion, apply_fn: Callable, cfg: TrainConfig,
+                    mesh=None):
     """The training step ``step(state, batch, generator=None, *, t=None,
     noise=None) → (state, metrics)``.
 
@@ -151,8 +164,22 @@ def make_train_step(d: Diffusion, apply_fn: Callable, cfg: TrainConfig):
     instead. Metrics: ``loss``, ``grad_norm`` (before clipping),
     ``param_norm`` (after the update), ``loss_each`` (B,), ``t`` and
     ``grads`` (each parameter's gradient; None where it did not reach the
-    loss, which then updates as a zero gradient, as JAX's would be)."""
+    loss, which then updates as a zero gradient, as JAX's would be).
+
+    ``mesh``: a ``parallel.make_mesh`` mesh with ``data`` and / or
+    ``frame`` axes; ``batch`` is then this rank's ``shard_batch`` slice,
+    ``t`` and ``noise`` (when given) and the metrics are global, and
+    ``apply_fn.model`` is the module whose frame group is set. Microbatches
+    split the rank's slice, and the global noise is drawn once before the
+    split."""
     tx = make_optimizer(cfg)
+    names = () if mesh is None else mesh.mesh_dim_names
+    frame_group = mesh.get_group("frame") if "frame" in names else None
+    if frame_group is not None and not hasattr(apply_fn, "model"):
+        raise ValueError("frame-parallel training needs apply_fn.model")
+    # the cuts of a (B, T, ...) tensor, as parallel.batch_sharding makes
+    data = [(0, "data")] if "data" in names else []
+    frames = [(1, "frame")] if frame_group is not None else []
 
     def one_micro(params, micro, t, noise, generator):
         x = micro["x_start"]
@@ -164,6 +191,8 @@ def make_train_step(d: Diffusion, apply_fn: Callable, cfg: TrainConfig):
         with torch.enable_grad():
             terms = training_losses(d, model_fn, x, t, generator, noise=noise)
             loss = terms["loss"].mean()
+            if mesh is not None:
+                loss = loss / mesh.size()
             grads = torch.autograd.grad(loss, list(params.values()),
                                         allow_unused=True)
         return loss.detach(), terms["loss"].detach(), grads
@@ -171,6 +200,48 @@ def make_train_step(d: Diffusion, apply_fn: Callable, cfg: TrainConfig):
     def train_step(state: TrainState, batch: dict,
                    generator: Optional[torch.Generator] = None, *,
                    t=None, noise=None):
+        if mesh is None:
+            return step(state, batch, generator, t, noise)
+        x = batch["x_start"]
+        global_shape = list(x.shape)
+        for dim, axis in data + frames:
+            global_shape[dim] *= axis_size(mesh, axis)
+        if t is None:
+            t, _ = uniform_sample(generator, global_shape[0], d.num_timesteps,
+                                  device=x.device)
+        if noise is None:
+            noise = torch.randn(global_shape, generator=generator,
+                                dtype=x.dtype, device=x.device)
+        t_global = t
+        t, noise = shard(t, mesh, data), shard(noise, mesh, data + frames)
+        if frame_group is not None:
+            src = batch.get("rnn_input", batch.get("low_res_input"))
+            if src is not None:
+                batch = dict(batch,
+                             rnn_input=all_gather_frames(src, frame_group, 1))
+        model = None if frame_group is None else apply_fn.model
+        if model is not None:
+            set_frame_group(model, frame_group)
+        try:
+            state, metrics = step(state, batch, generator, t, noise)
+        finally:
+            if model is not None:
+                set_frame_group(model, None)
+        metrics["t"] = t_global
+        return state, metrics
+
+    def reduce_over_mesh(loss, loss_each, dense):
+        """The global loss, (B,) losses and gradients from this rank's."""
+        sum_over_mesh_(list(dense.values()) + [loss], mesh)
+        with torch.no_grad():
+            if frame_group is not None:
+                loss_each = all_reduce_mean(loss_each, frame_group)
+            if "data" in names:
+                loss_each = all_gather_frames(loss_each,
+                                              mesh.get_group("data"), 0)
+        return loss, loss_each
+
+    def step(state, batch, generator, t, noise):
         b = batch["x_start"].shape[0]
         if t is None:
             t, _ = uniform_sample(generator, b, d.num_timesteps,
@@ -202,6 +273,10 @@ def make_train_step(d: Diffusion, apply_fn: Callable, cfg: TrainConfig):
         grads = dict(zip(params, grads))
         dense = {k: torch.zeros_like(p) if grads[k] is None else grads[k]
                  for k, p in params.items()}
+        if mesh is not None:
+            loss, loss_each = reduce_over_mesh(loss, loss_each, dense)
+            grads = {k: None if g is None else dense[k]
+                     for k, g in grads.items()}
         grad_norm = global_norm(dense.values())
         tx.update_(params, dense, state.opt_state)
         for ema, rate in zip(state.ema_params, cfg.ema_rates):

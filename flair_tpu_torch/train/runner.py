@@ -16,6 +16,13 @@ train_util.py:183-334):
   ``--checkpoint`` read them) and ``train_state.npz`` (step, update count,
   generator state, the AdamW moments); a new runner resumes from the
   latest one, so a resumed run repeats a straight one.
+
+``TrainRunner(mesh=)`` (JAX stores the mesh and never reads it,
+runner.py:98,108) trains data- and frame-parallel: the first rank's
+parameters are broadcast at construction, each batch is cut by
+``parallel.shard_batch``, the step sums the gradients over the mesh, and
+only the mesh's first rank logs and writes checkpoints (the others wait at
+a barrier after a save); every rank resumes from the same files.
 """
 
 from __future__ import annotations
@@ -27,6 +34,8 @@ from typing import Callable, Iterator, Optional
 import numpy as np
 import torch
 
+from ..parallel import (is_first_rank, mesh_barrier, replicate_params,
+                        shard_batch)
 from ..utils import convert
 from ..utils import logging as logger
 from ..utils.checkpoint import load_pytree, save_pytree
@@ -85,15 +94,20 @@ class TrainRunner:
     on ``device``. ``data`` yields dicts with at least ``x_start``
     (B, T, H, W, C) in [-1, 1], numpy or torch. ``interpolate(f0, f1, skip)``
     densifies ``low_res_input`` when ``skip > 1``. ``device`` defaults to
-    cuda and raises without a card (``device="cpu"`` runs on the CPU)."""
+    cuda and raises without a card (``device="cpu"`` runs on the CPU).
+    ``mesh``: a ``parallel.make_mesh`` mesh; every rank builds the runner
+    with the same arguments and passes the same whole batches."""
 
     def __init__(self, diffusion, apply_fn: Callable, cfg: TrainConfig,
                  model: torch.nn.Module, *,
                  ckpt_dir: str = "./checkpoints_out", log_interval: int = 10,
                  save_interval: int = 10000, skip: int = 1,
                  interpolate: Optional[Callable] = None,
-                 generator: Optional[torch.Generator] = None, device=None):
+                 generator: Optional[torch.Generator] = None, device=None,
+                 mesh=None):
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.first = mesh is None or is_first_rank(mesh)
         self.d = diffusion
         self.cfg = cfg
         self.ckpt_dir = ckpt_dir
@@ -104,13 +118,17 @@ class TrainRunner:
         self.generator = (torch.Generator(self.device).manual_seed(0)
                           if generator is None else generator)
         model.to(self.device)
+        if mesh is not None:
+            replicate_params(mesh, model)
         self.names = convert.flax_names(model)
         self.state = create_train_state(dict(model.named_parameters()), cfg)
         resume_path, self.resume_step = find_resume_checkpoint(ckpt_dir)
         if resume_path is not None:
-            logger.log(f"resuming from {resume_path} (step {self.resume_step})")
+            if self.first:
+                logger.log(f"resuming from {resume_path} "
+                           f"(step {self.resume_step})")
             self._restore(load_pytree(resume_path))
-        self.train_step = make_train_step(diffusion, apply_fn, cfg)
+        self.train_step = make_train_step(diffusion, apply_fn, cfg, mesh=mesh)
         self.step = 0
 
     def _prepare(self, batch) -> dict:
@@ -121,7 +139,7 @@ class TrainRunner:
                 raise ValueError("skip > 1 requires a frame interpolator")
             batch["low_res_input"] = interpolate_skipped_frames(
                 self.interpolate, batch["low_res_input"], self.skip)
-        return batch
+        return batch if self.mesh is None else shard_batch(self.mesh, batch)
 
     def run_step(self, batch) -> dict:
         """One step; returns the host metrics (``grads`` stays on the
@@ -132,10 +150,12 @@ class TrainRunner:
         host = {k: v.detach().cpu().numpy() for k, v in metrics.items()
                 if k != "grads"}
         host["grads"] = metrics["grads"]
-        log_loss_quartiles(self.d.num_timesteps, host["t"], host["loss_each"])
-        logger.logkv("step", self.step + self.resume_step)
-        logger.logkv_mean("grad_norm", float(host["grad_norm"]))
-        logger.logkv_mean("param_norm", float(host["param_norm"]))
+        if self.first:
+            log_loss_quartiles(self.d.num_timesteps, host["t"],
+                               host["loss_each"])
+            logger.logkv("step", self.step + self.resume_step)
+            logger.logkv_mean("grad_norm", float(host["grad_norm"]))
+            logger.logkv_mean("param_norm", float(host["param_norm"]))
         self.step += 1
         return host
 
@@ -175,8 +195,11 @@ class TrainRunner:
     def save(self) -> str:
         step = self.step + self.resume_step
         path = os.path.join(self.ckpt_dir, f"state_{step:06d}")
-        logger.log(f"saving model at step {step}...")
-        save_pytree(path, self._tree())
+        if self.first:
+            logger.log(f"saving model at step {step}...")
+            save_pytree(path, self._tree())
+        if self.mesh is not None:
+            mesh_barrier(self.mesh)
         return path
 
     def run_loop(self, data: Iterator[dict], max_steps: int = 0) -> None:
@@ -189,7 +212,7 @@ class TrainRunner:
             if max_steps and self.step >= max_steps:
                 break
             self.run_step(next(data))
-            if self.step % self.log_interval == 0:
+            if self.step % self.log_interval == 0 and self.first:
                 logger.dumpkvs()
             if self.step % self.save_interval == 0 and self.step != 0:
                 self.save()
