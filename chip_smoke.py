@@ -25,13 +25,28 @@ Phases, one JSON line each (a record per shape for the kernels):
                then gradient rows (the autograd Function: kernel forward,
                plain float32 backward, against the plain version's own
                autograd on float32 copies, all eight inputs, backward
-               timed) at both main-path shapes in bf16, M = 5, and one f32
+               timed) at both main-path shapes in bf16, M = 5, and one f32;
+               then the int8 instance (``int8_dots``, FLAIR_DCN_INT8) at
+               both main-path shapes and M against its int8 twin
+               (DCN_INT8_TOL, and DCN_INT8_SEPARATION: the kernel without
+               the flag stays farther from the twin), timed beside the
+               bf16 instance on the same inputs, with the quantise pass
+               timed alone; then int8 correctness-only rows over
+               DCN_INT8_EDGE, DCN_INT8_EXTRA and one f32-x row at
+               DAVSRNet's shape
   kernel_flash csrc/flash_attn.cu vs ops/attention.dot_product_attention at
                the BlurUNet's three attention shapes (bf16) and one f32 row,
                timed beside SDPA (and the kernel SDPA ran, from the
                profiler); then correctness-only rows at ragged S on both
                sides of each query-tile switch and at D = 32, V a ramp;
                then gradient rows at S = 256 (bf16, f32)
+  kernel_probe csrc/probe_dot.cu (tools/probe_int8.py's dot_kernel): the
+               entry point ``python -m flair_tpu_torch.tools.probe_int8
+               [uvp]`` in process at UVP 256 and 384 (its launches counted),
+               then each of the three variants against its plain version
+               at PROBE_CHECK_GRID grid steps, timed at the TPU constants
+               (GRID 1024, REPS 32, BC 576) beside REPS torch.bmm (bf16) /
+               torch._int_mm (int8) calls, their layout copy timed apart
   slice_small  the x8 test configuration on cuda (kernel) vs cpu (plain)
   slice_small_blur  the gaussian and jpeg test configurations (goldens'
                widths, 32-channel heads) on cuda (both kernels) vs cpu;
@@ -72,6 +87,11 @@ Phases, one JSON line each (a record per shape for the kernels):
                64² clip → 15 frames at 256²: K1 launches held (112), ms a
                forward, peak, output finite
   slice_full   full-width BicubicUNet, 13-frame 64² clip → 512², ddim25
+  slice_full_int8  slice_full again with FLAIR_DCN_INT8=1: the same model,
+               clip and noise through K1's int8 instance (5 400 int8
+               launches, no bf16 one), ms a step beside slice_full's, peak,
+               PSNR against slice_full's output (> SLICE_INT8_PSNR_DB,
+               and not equal to it)
   slice_full_gaussian  full-width BlurUNet, 10-frame 128² clip → 512²,
                gaussian task, ddim25
   slice_full_face  slice_full with the face prior on: CodeFormer and
@@ -183,10 +203,12 @@ from flair_tpu_torch.models.yolov5face import (
 from flair_tpu_torch.operators import SuperResolution
 from flair_tpu_torch.ops.attention import dot_product_attention, flash_attention
 from flair_tpu_torch.ops.dcn import deform_conv2d_raw
-from flair_tpu_torch.ops.deform import deform_conv2d_raw_plain
+from flair_tpu_torch.ops.deform import (
+    deform_conv2d_raw_plain, quantize_values)
 from flair_tpu_torch.parallel import (
     LocalWorld, all_gather_frames, make_mesh, shard_batch, sum_over_mesh_)
 from flair_tpu_torch.pipeline import video
+from flair_tpu_torch.tools import probe_int8
 from flair_tpu_torch.pipeline.video import (
     TASK_CONFIGS, init_from_degraded, restore_video, rnn_input_for, scale_tau,
     window_slices)
@@ -201,10 +223,11 @@ from flair_tpu_torch.utils.convert import (
     from_flax_bicubic_unet, from_flax_blur_unet)
 from flair_tpu_torch.utils.png import read_png, write_png
 
-ALL_PHASES = ("device", "build", "kernel_dcn", "kernel_flash", "slice_small",
+ALL_PHASES = ("device", "build", "kernel_dcn", "kernel_flash",
+              "kernel_probe", "slice_small",
               "slice_small_blur", "slice_small_face", "slice_small_train",
               "slice_small_interp", "train_full", "train_full_blur",
-              "interp_full", "davsr_full", "slice_full",
+              "interp_full", "davsr_full", "slice_full", "slice_full_int8",
               "slice_full_gaussian", "slice_full_face", "detector", "cli",
               "slice_small_priors", "priors_full", "sharded_small",
               "sharded_full", "train_dp")
@@ -213,6 +236,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 MEM_BW = 3.35e12       # H100 SXM HBM3 bytes/s (data sheet)
 PEAK_BF16 = 989e12     # dense bf16 tensor-core FLOP/s
 PEAK_F32 = 67e12       # float32 outside the tensor cores
+PEAK_INT8 = 1979e12    # dense int8 tensor-core OP/s
 DCN_MRMS = (10.0, 5.0)  # max residue magnitude: BlurUNet sites, SR3 sites
 DCN_G = 16
 DCN_SHAPES = ((512, 128, 64), (256, 256, 128))   # (H=W, Cin, Cout), B=1
@@ -235,6 +259,38 @@ DCN_EDGE = ((1, 40, 72, 128, 64, 16, True, 3.0, 10.0),
             (1, 40, 72, 384, 128, 16, True, 3.0, 5.0),
             (1, 100, 100, 512, 64, 16, False, 3.0, 10.0),
             (2, 40, 72, 256, 128, 16, True, 40.0, 10.0))
+# K1's int8 instance against its int8 twin on the same card tensors, max abs
+# / max rel (over the largest |output|), unit outputs: both quantise x alike
+# and sum integers exactly, but the kernel's approximate tanh / sigmoid move
+# a few integer corner weights by one step of 1/127 and its f32 tap sums run
+# in another order before the one rounding to bf16
+DCN_INT8_TOL = (3e-2, 1e-2)
+# and, on the same inputs, the kernel without int8_dots (the bf16 or f32
+# instance: what a kernel that ignored the flag would give) at least this
+# many times the int8 kernel's mean relative distance from the int8 twin,
+# as tests/test_torch_dcn_int8.py holds the twin against JAX
+DCN_INT8_SEPARATION = 1.5
+DCN_INT8_EDGE = (1, 2, 4, 6)   # DCN_EDGE rows also checked with int8_dots
+# and an f32-x row at Cin/G = 8 (float raw blocks, 8-channel items, ragged
+# tiles, B = 2), which the DAVSR row (Cin/G = 16) does not reach:
+# DCN_EDGE's fields, then x's dtype
+DCN_INT8_EXTRA = ((2, 33, 65, 128, 64, 16, False, 12.0, 10.0,
+                   torch.float32),)
+# slice_full_int8 against slice_full, PSNR over the [0, 1] clip: the bar
+# tests/test_goldens.py:86-87 sets for "the same restoration". It guards
+# finiteness and range only: the random-weight trunk barely reads the
+# aligned features, so int8 moves the output far less (97.4 dB on the
+# H100) and no PSNR bar here could tell a wrong int8 kernel from a right
+# one; kernel_dcn's int8 rows (DCN_INT8_SEPARATION) do that. The phase
+# also requires the output to differ from slice_full's.
+SLICE_INT8_PSNR_DB = 40.0
+# kernel_probe: window heights (M = 5, 10), grid steps of the check, and
+# the bf16 variant's max abs error over the largest |output|: the tensor
+# cores sum REPS·UVP = 8 192 / 12 288 products in their own f32 order
+# against an exact float64 reference (1.4e-5 measured at 12 288)
+PROBE_UVPS = (256, 384)
+PROBE_CHECK_GRID = 4
+PROBE_BF16_TOL = 5e-5
 # K2 at the BlurUNet's attention sites, one 10-frame window, D = 64:
 # (S, heads, dtype, calls per denoiser step)
 FLASH_N, FLASH_D = 10, 64
@@ -292,9 +348,11 @@ INTERP_SIZE = 512
 DAVSR_T, DAVSR_SIZE = 3, 64
 FULL_STEPS = "ddim25"
 SLEEP_CYCLES_PER_CALL = 400_000   # ~0.2 ms at the H100's SM clock
-DCN_PER_STEP = {"slice_full": 108, "slice_full_gaussian": 180,
+DCN_PER_STEP = {"slice_full": 108, "slice_full_int8": 108,
+                "slice_full_gaussian": 180,
                 "slice_full_face": 108, "cli_x8": 108, "cli_jpeg": 180}
-FLASH_PER_STEP = {"slice_full": 0, "slice_full_gaussian": 16,
+FLASH_PER_STEP = {"slice_full": 0, "slice_full_int8": 0,
+                  "slice_full_gaussian": 16,
                   "slice_full_face": 0, "cli_x8": 0, "cli_jpeg": 16}
 # the cli phase: (path, argv after the task's clip, frames, input size)
 CLI_RUNS = (("cli_x8", ["x8_bicubic", "--sampler", "ddim", "--steps", "25"],
@@ -502,13 +560,16 @@ def dcn_inputs(h, cin, cout, seed, device, b=1, w=None, g=DCN_G, amp=3.0,
     return x, res_y, res_x, mlog, flow_y, flow_x, weight, bias
 
 
-def dcn_bound_ms(h, cin, cout, x_bytes, g=DCN_G, peak=PEAK_BF16):
+def dcn_bound_ms(h, cin, cout, x_bytes, g=DCN_G, peak=PEAK_BF16,
+                 xq_bytes=None):
     """x, the three raw blocks, both flow planes and the output in the
-    kernel's dtype (``x_bytes``), W and bias read once; 2·H·W·9·Cin·Cout
-    FLOP at ``peak``."""
+    kernel's dtype (``x_bytes``; x itself in ``xq_bytes`` when given: 1 for
+    the int8 instance), W and bias read once; 2·H·W·9·Cin·Cout FLOP at
+    ``peak``."""
     px = h * h
     gk = g * 9
-    nbytes = (px * cin * x_bytes + 3 * px * gk * x_bytes + 2 * px * 2 * 4
+    xb = x_bytes if xq_bytes is None else xq_bytes
+    nbytes = (px * cin * xb + 3 * px * gk * x_bytes + 2 * px * 2 * 4
               + px * cout * x_bytes + 9 * cin * cout * 4 + cout * 4)
     flops = 2.0 * px * 9 * cin * cout
     t_bytes = nbytes / MEM_BW * 1e3
@@ -531,6 +592,91 @@ def dcn_error(args, mrm):
                                       ml.float(), fy, fx, w, b, mrm)
     err = (out.float() - ref).abs().max().item()
     return err, err / ref.abs().max().item()
+
+
+def dcn_int8_error(args, mrm):
+    """One launch of the int8 instance against the int8 twin on the same
+    card tensors, and one of the kernel without ``int8_dots``: a dict of
+    the int8 kernel's max abs, max abs over the largest |output| and mean
+    relative error, and the flag-less kernel's mean relative distance from
+    the int8 twin. The launches are not counted."""
+    saved = (deform_conv2d_raw.launches, deform_conv2d_raw.launches_int8)
+    out = deform_conv2d_raw(*args, mrm, int8_dots=True)
+    off = deform_conv2d_raw(*args, mrm)
+    torch.cuda.synchronize()
+    deform_conv2d_raw.launches, deform_conv2d_raw.launches_int8 = saved
+    with torch.no_grad():
+        ref = deform_conv2d_raw_plain(*args, mrm, int8_dots=True).float()
+    scale = ref.abs().mean().item()
+    err = (out.float() - ref).abs().max().item()
+    return {"max_abs_err": err,
+            "max_rel_err": err / ref.abs().max().item(),
+            "mean_rel_err": (out.float() - ref).abs().mean().item() / scale,
+            "mean_rel_flag_off": (off.float() - ref).abs().mean().item()
+            / scale}
+
+
+def check_int8_row(row):
+    row.update(tol_abs=DCN_INT8_TOL[0], tol_rel=DCN_INT8_TOL[1],
+               min_separation=DCN_INT8_SEPARATION)
+    emit({"phase": "kernel_dcn", **row})
+    if not (row["max_abs_err"] <= DCN_INT8_TOL[0]
+            and row["max_rel_err"] <= DCN_INT8_TOL[1]
+            and row["mean_rel_flag_off"]
+            >= DCN_INT8_SEPARATION * row["mean_rel_err"]):
+        raise AssertionError(f"dcn int8 instance disagrees: {row}")
+
+
+def kernel_dcn_int8(ctx):
+    """kernel_dcn's int8 rows: the main-path shapes at both M (the bf16
+    rows' inputs), timed beside the bf16 instance, the quantise pass alone
+    and the int8 twin; then DCN_INT8_EDGE and DAVSRNet's f32-x shape,
+    checked only."""
+    dev = torch.device("cuda")
+    rows = []
+    for mrm in DCN_MRMS:
+        for i, (h, cin, cout) in enumerate(DCN_SHAPES):
+            args = dcn_inputs(h, cin, cout, seed=100 + i, device=dev)
+            errs = dcn_int8_error(args, mrm)
+            saved = (deform_conv2d_raw.launches,
+                     deform_conv2d_raw.launches_int8)
+            ms_bf16 = cuda_ms(lambda: deform_conv2d_raw(*args, mrm), reps=20)
+            ms = cuda_ms(lambda: deform_conv2d_raw(*args, mrm,
+                                                   int8_dots=True), reps=20)
+            quant_ms = cuda_ms(lambda: quantize_values(args[0]), reps=20)
+            plain_ms = cuda_ms(lambda: deform_conv2d_raw_plain(
+                *args, mrm, int8_dots=True), reps=3, warmup=1, batches=1)
+            (deform_conv2d_raw.launches,
+             deform_conv2d_raw.launches_int8) = saved
+            bound, by, nbytes, flops = dcn_bound_ms(h, cin, cout, 2,
+                                                    xq_bytes=1)
+            row = {"shape": f"x(1,{h},{h},{cin})->{cout}", "dtype": "int8",
+                   "mrm": mrm, **errs, "ms": ms, "ms_bf16_instance": ms_bf16,
+                   "quantize_ms": quant_ms, "ms_minus_quantize": ms - quant_ms,
+                   "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+                   "bytes": nbytes, "flop": flops,
+                   "tflops": flops / ms / 1e9, "card": ctx["smi"]}
+            check_int8_row(row)
+            rows.append(row)
+    edge = ([DCN_EDGE[i] + (torch.bfloat16,) for i in DCN_INT8_EDGE]
+            + list(DCN_INT8_EXTRA))
+    for i, (b, h, w, cin, cout, g, views, amp, mrm, dt) in enumerate(edge):
+        args = dcn_inputs(h, cin, cout, seed=600 + i, device=dev, b=b, w=w,
+                          g=g, amp=amp, views=views, dtype=dt)
+        row = {"shape": f"x({b},{h},{w},{cin})->{cout}",
+               "dtype": "int8" if dt == torch.bfloat16 else "int8, f32 x",
+               "G": g, "raw": "views" if views else "separate",
+               "flow_px": amp, "mrm": mrm, **dcn_int8_error(args, mrm)}
+        check_int8_row(row)
+        rows.append(row)
+    h, cin, cout, g, mrm = DCN_F32_ROW
+    args = dcn_inputs(h, cin, cout, seed=300, device=dev, g=g,
+                      dtype=torch.float32)
+    row = {"shape": f"x(1,{h},{h},{cin})->{cout}", "dtype": "int8, f32 x",
+           "G": g, "mrm": mrm, **dcn_int8_error(args, mrm)}
+    check_int8_row(row)
+    rows.append(row)
+    ctx["dcn_int8_rows"] = rows
 
 
 def phase_kernel_dcn(ctx):
@@ -606,6 +752,7 @@ def phase_kernel_dcn(ctx):
         if not max(row["max_rel_err"].values()) <= GRAD_TOL[dtype]:
             raise AssertionError(f"dcn gradients disagree at {row['shape']} "
                                  f"{dtype}: {row['max_rel_err']}")
+    kernel_dcn_int8(ctx)
 
 
 def grad_errors(names, grads, ref):
@@ -805,6 +952,108 @@ def flash_grad_row(s, heads, d, dtype, seed):
             "gradient": "K2 forward + plain float32 backward vs plain "
             "autograd", "max_rel_err": errs, "tol_rel": GRAD_TOL[dtype],
             "backward_ms": ms}
+
+
+def probe_library(a, b):
+    """The probe's products by PyTorch: REPS ``torch.bmm`` calls (bf16, on
+    a's transposed view, no copy) or REPS ``torch._int_mm`` calls (int8).
+    ``_int_mm`` takes 2-D operands, so a goes to a row-major (GRID·BC, UVP)
+    copy (for the quantised variant the quantisation is fused into it) and
+    b to column-major (UVP, 128) ones, the layout of cuBLASLt's int8 GEMM:
+    those copies are a function of their own, returned apart. Returns
+    (products, copies or None, what the library calls are)."""
+    reps = b.shape[0]
+    if a.dtype == torch.bfloat16:
+        at = a.mT
+        bx = [b[r].expand(a.shape[0], -1, -1) for r in range(reps)]
+
+        def bmms():
+            for r in range(reps):
+                torch.bmm(at, bx[r])
+        return bmms, None, f"{reps} x torch.bmm"
+    quant = a.dtype == torch.float32
+
+    def copies():
+        t = torch.round(a.mT * 127.0).to(torch.int8) if quant else a.mT
+        return (t.contiguous().reshape(-1, a.shape[1]),
+                [b[r].mT.contiguous().mT for r in range(reps)])
+
+    at, bt = copies()
+
+    def int_mms():
+        for r in range(reps):
+            torch._int_mm(at, bt[r])
+    return int_mms, copies, (
+        f"{reps} x torch._int_mm; copies: "
+        + ("round(a.mT * 127).to(int8)" if quant else "a.mT")
+        + ".contiguous(), b[r].mT.contiguous().mT")
+
+
+def phase_kernel_probe(ctx):
+    """K3 (csrc/probe_dot.cu): the probe's entry point in process at each
+    UVP, its launches counted (the main path of this kernel); then each
+    variant against its plain version at PROBE_CHECK_GRID grid steps and
+    timed at the TPU constants beside the library's products."""
+    dev = torch.device("cuda")
+    launches = {}
+    for uvp in PROBE_UVPS:
+        probe_int8.probe_dot.launches = 0
+        rc = probe_int8.main([str(uvp)])
+        torch.cuda.synchronize()
+        launches[f"probe_{uvp}"] = probe_int8.probe_dot.launches
+        # one warm-up and three timed calls a variant, one check
+        if rc != 0 or launches[f"probe_{uvp}"] != 4 * len(
+                probe_int8.VARIANTS) + 1:
+            raise AssertionError(f"probe entry point at uvp={uvp}: rc {rc}, "
+                                 f"launches {launches}")
+    ctx["probe_launches"] = launches
+    rows = []
+    for uvp in PROBE_UVPS:
+        for v, (name, (_, _, acc, quant)) in enumerate(
+                probe_int8.VARIANTS.items()):
+            a, b = probe_int8.make_inputs(name, PROBE_CHECK_GRID, uvp,
+                                          seed=20 + v, device=dev)
+            saved = probe_int8.probe_dot.launches
+            out = probe_int8.probe_dot(a, b, acc, quant)
+            ref = probe_int8.probe_dot_plain(a, b, acc, quant)
+            err = (out.double() - ref.double()).abs().max().item()
+            rel = err / ref.double().abs().max().item()
+            a, b = probe_int8.make_inputs(name, probe_int8.GRID, uvp,
+                                          seed=v, device=dev)
+            ms = cuda_ms(lambda: probe_int8.probe_dot(a, b, acc, quant),
+                         reps=5)
+            probe_int8.probe_dot.launches = saved
+            plain_ms = cuda_ms(lambda: probe_int8.probe_dot_plain(
+                a, b, acc, quant), reps=1, warmup=1, batches=1)
+            gemms, copies, lib_names = probe_library(a, b)
+            lib_ms = cuda_ms(gemms, reps=1, warmup=1, batches=3)
+            copy_ms = (cuda_ms(copies, reps=3, warmup=1, batches=3)
+                       if copies else None)
+            ops = probe_int8.op_count(probe_int8.GRID, uvp)
+            nbytes = (a.numel() * a.element_size()
+                      + b.numel() * b.element_size()
+                      + probe_int8.GRID * probe_int8.BC * probe_int8.LANES
+                      * 4)
+            peak = PEAK_BF16 if acc == torch.float32 else PEAK_INT8
+            t_ops, t_bytes = ops / peak * 1e3, nbytes / MEM_BW * 1e3
+            tol = PROBE_BF16_TOL if acc == torch.float32 else 0.0
+            row = {"phase": "kernel_probe", "dtype": name, "uvp": uvp,
+                   "shape": f"a({probe_int8.GRID},{uvp},{probe_int8.BC}) "
+                            f"b({probe_int8.REPS},{uvp},128)",
+                   "max_abs_err": err, "max_rel_err": rel, "tol_rel": tol,
+                   "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                   "library_kernel": lib_names, "library_copy_ms": copy_ms,
+                   "bound_ms": max(t_ops, t_bytes),
+                   "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "ops": ops, "bytes": nbytes,
+                   "tops": ops / ms / 1e9, "card": ctx["smi"]}
+            emit(row)
+            rows.append(row)
+            del a, b, out, ref
+            torch.cuda.empty_cache()
+            if not rel <= tol:
+                raise AssertionError(f"probe kernel disagrees: {row}")
+    ctx["probe_rows"] = rows
 
 
 def psnr(a, b):
@@ -2054,12 +2303,15 @@ def phase_priors_full(ctx):
         raise AssertionError(f"priors_full failed: {bad}")
 
 
-def run_full(ctx, name, task, model, make_apply, clip, face=None):
+def run_full(ctx, name, task, model, make_apply, clip, face=None,
+             int8=False):
     """One main path at full width: every kernel count set to 0 just
     before ``restore_video``, read just after, and held to the expected
     launches per denoiser step × steps × windows. ``face``: (codeformer,
     parsenet) counted appliers, for the face prior with FixedFaceHelper;
-    its calls are counted and timed in the run."""
+    its calls are counted and timed in the run. ``int8``: with
+    FLAIR_DCN_INT8=1 for the run (every K1 launch the int8 instance's).
+    Returns the restored clip."""
     dev = torch.device("cuda")
     base = TASK_CONFIGS[task]
     d = make_task_diffusion(base.task, FULL_STEPS, device=dev)
@@ -2080,20 +2332,29 @@ def run_full(ctx, name, task, model, make_apply, clip, face=None):
                        "parsenet": (face_steps + 1) * n_windows}
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
+    if int8:
+        os.environ["FLAIR_DCN_INT8"] = "1"
     deform_conv2d_raw.launches = flash_attention.launches = 0
+    deform_conv2d_raw.launches_int8 = 0
     for f in face or ():
         f.calls = 0
     t0 = time.time()
-    with FaceProbe() as probe:
-        out = restore_video(clip, cfg, model_apply, diffusion=d,
-                            sampler="ddim", device=dev,
-                            generator=torch.Generator(dev).manual_seed(0),
-                            **kw)
-        torch.cuda.synchronize()
+    try:
+        with FaceProbe() as probe:
+            out = restore_video(clip, cfg, model_apply, diffusion=d,
+                                sampler="ddim", device=dev,
+                                generator=torch.Generator(dev).manual_seed(0),
+                                **kw)
+            torch.cuda.synchronize()
+    finally:
+        os.environ.pop("FLAIR_DCN_INT8", None)
     secs = time.time() - t0
     launches = {"dcn_raw": deform_conv2d_raw.launches,
+                "dcn_raw_int8": deform_conv2d_raw.launches_int8,
                 "flash_attn": flash_attention.launches}
-    expect = {"dcn_raw": DCN_PER_STEP[name] * steps * n_windows,
+    k1 = DCN_PER_STEP[name] * steps * n_windows
+    expect = {"dcn_raw": 0 if int8 else k1,
+              "dcn_raw_int8": k1 if int8 else 0,
               "flash_attn": FLASH_PER_STEP[name] * steps * n_windows}
     out_size = base.output_size
     rec = {"phase": name, "task": task, "steps": FULL_STEPS,
@@ -2119,12 +2380,26 @@ def run_full(ctx, name, task, model, make_apply, clip, face=None):
                     "face_ms_per_call_max": max(face_ms),
                     "face_share_of_run": sum(face_ms) / 1e3 / secs})
         ctx["face"] = (face, clip)
+    if int8:
+        base_out, base_rec = ctx["full_out"]["slice_full"]
+        rec.update({"ms_per_step_slice_full": base_rec["ms_per_step"],
+                    "max_memory_allocated_gib_slice_full":
+                        base_rec["max_memory_allocated_gib"],
+                    "psnr_db_vs_slice_full": psnr(out, base_out),
+                    "min_psnr_db": SLICE_INT8_PSNR_DB,
+                    "differs_from_slice_full":
+                        not np.array_equal(out, base_out)})
     emit(rec)
     ctx.setdefault("launches", {})[name] = launches
-    ctx.setdefault("full", {})[name] = (task, model, model_apply, clip)
+    if not int8:   # profile_step runs each model without the env variable
+        ctx.setdefault("full", {})[name] = (task, model, model_apply, clip)
+    ctx.setdefault("full_out", {})[name] = (out, rec)
     if not (rec["shape"] == [clip.shape[0], out_size, out_size, 3]
             and rec["finite"] and rec["min"] >= 0.0 and rec["max"] <= 1.0
-            and launches == expect and calls == expect_face):
+            and launches == expect and calls == expect_face
+            and rec.get("psnr_db_vs_slice_full", math.inf)
+            > SLICE_INT8_PSNR_DB
+            and rec.get("differs_from_slice_full", True)):
         raise AssertionError(f"{name} failed its checks: {rec}")
 
 
@@ -2139,6 +2414,17 @@ def phase_slice_full(ctx):
         0, 1, (13, 64, 64, 3)).astype(np.float32)
     run_full(ctx, "slice_full", "x8_bicubic", model,
              lambda d: wrap_bicubic_model(d, model), clip)
+
+
+def phase_slice_full_int8(ctx):
+    """slice_full with FLAIR_DCN_INT8=1: slice_full's model, clip and noise
+    (its generator's seed), every K1 launch the int8 instance's; PSNR
+    against slice_full's output. Needs slice_full earlier in the run."""
+    if "slice_full" not in ctx.get("full_out", {}):
+        raise AssertionError("slice_full_int8 needs slice_full's run first")
+    task, model, _, clip = ctx["full"]["slice_full"]
+    run_full(ctx, "slice_full_int8", task, model,
+             lambda d: wrap_bicubic_model(d, model), clip, int8=True)
 
 
 def phase_slice_full_gaussian(ctx):
@@ -2862,7 +3148,8 @@ def main() -> int:
         for w in ctx.get("worlds", {}).values():
             w.close()
         shutil.rmtree(ctx["tmp"], ignore_errors=True)
-    launches = {"dcn_raw": {}, "flash_attn": {}}
+    launches = {"dcn_raw": {}, "dcn_raw_int8": {}, "flash_attn": {},
+                "probe_dot": ctx.get("probe_launches", {})}
     for path, counts in ctx.get("launches", {}).items():
         for kern, n in counts.items():
             launches[kern][path] = n
@@ -2873,11 +3160,21 @@ def main() -> int:
             "dcn_raw", "flair_tpu_torch/csrc/dcn_raw.cu",
             "flair_tpu/ops/dcn_pallas.py:50", ctx["dcn_rows"],
             launches["dcn_raw"], "cli_x8", ctx["dcn_grad_rows"]))
+    if "kernel_dcn" in phases:
+        kernels.append(kernel_record(
+            "dcn_raw_int8", "flair_tpu_torch/csrc/dcn_raw.cu",
+            "flair_tpu/ops/dcn_pallas.py:176", ctx["dcn_int8_rows"],
+            launches["dcn_raw_int8"], "slice_full_int8"))
     if "kernel_flash" in phases:
         kernels.append(kernel_record(
             "flash_attn", "flair_tpu_torch/csrc/flash_attn.cu",
             "flair_tpu/ops/attention.py:53", ctx["flash_rows"],
             launches["flash_attn"], "cli_jpeg", ctx["flash_grad_rows"]))
+    if "kernel_probe" in phases:
+        kernels.append(kernel_record(
+            "probe_dot", "flair_tpu_torch/csrc/probe_dot.cu",
+            "tools/probe_int8.py:82", ctx["probe_rows"],
+            launches["probe_dot"], "probe_256"))
     if kernels:
         emit({"kernels": kernels})
     print(ctx["smi"], flush=True)

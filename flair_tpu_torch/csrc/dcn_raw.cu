@@ -73,10 +73,33 @@
 //
 // A float32 instance (dcn_raw_f32: 64 pixels a block, tap outer, CUDA-core
 // FMAs) serves the exact parity runs.
+//
+// The int8 instance (dcn_raw_bf16<..., I8 = true, ...>, exported as
+// dcn_raw_forward_int8) is the counterpart of the TPU kernel's int8_dots
+// branch (dcn_pallas.py:176-199; quantisation :386-396), a template flag on
+// the bf16 design above, not a new design:
+// - x arrives quantised (int8, symmetric against its global max, one scale
+//   a call; the wrapper quantises in plain PyTorch, as JAX does outside its
+//   pallas_call). A sampling item loads CH int8 channels a corner: one
+//   8-byte load at Cin/G = 8 (512^2), one 16-byte load at Cin/G = 16 (256^2,
+//   DAVSR), half the bf16 instance's bytes.
+// - Corner weights are integers, folded in JAX's order, the mask rounded to
+//   bf16 as JAX's modulation block is: w2 = rn(((wy * m) * wx) * 127), in
+//   [0, 127]. Four corners' bytes of one channel are transposed into one
+//   word (__byte_perm) and summed with one __dp4a against the packed w2:
+//   exact int32, as JAX's int32 window dots.
+// - One f32 multiply by dq = max|x| / 127^2, one rounding to bf16: the A
+//   tile is the same bf16 tile, and the B staging, ldmatrix / mma.sync and
+//   the epilogue are the bf16 instance's.
+// - Raw blocks come in x's dtype before quantisation: bf16, or float32 for
+//   f32 x (DAVSR), staged in 160-byte windows a pixel instead of 96 (89 /
+//   97 KB of shared memory at Cout = 64 / 128, still 2 blocks an SM).
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -201,7 +224,13 @@ dcn_raw_f32(const float* __restrict__ x, const float* __restrict__ res_y,
 constexpr int TH = 8, TW = 16;  // output pixel tile (rows x columns)
 constexpr int BP = TH * TW;     // output pixels per block
 constexpr int MIN_BLOCKS = 2;   // resident blocks an SM (__launch_bounds__)
-constexpr int RAW_LD = 48;      // raw values a pixel and block (6 x 16 B)
+// staged 16-byte raw chunks a pixel and block: a chunk's run is <= 4
+// groups x 9 taps (Cin/G >= 8), 72 bytes of bf16 (6 chunks with the
+// misalignment) or 144 of float (10; float raw blocks come only with int8 x)
+template <typename RT>
+__host__ __device__ constexpr int raw_chunks() {
+  return sizeof(RT) == 4 ? 10 : 6;
+}
 constexpr int A_LD = CK + 8;    // A tile row stride (bf16), padded by 16 B
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -265,6 +294,25 @@ __device__ __forceinline__ float sigmoid_prep(float v) {
   return __fdividef(1.0f, 1.0f + __expf(-v));
 }
 
+// The four corners' bytes of one 4-channel word, transposed: t[j] holds
+// channel j of corners 0..3 in its bytes 0..3.
+__device__ __forceinline__ void transpose4x4(const uint32_t* c, uint32_t* t) {
+  const uint32_t p = __byte_perm(c[0], c[1], 0x5140);  // a0 b0 a1 b1
+  const uint32_t q = __byte_perm(c[0], c[1], 0x7362);  // a2 b2 a3 b3
+  const uint32_t r = __byte_perm(c[2], c[3], 0x5140);  // c0 d0 c1 d1
+  const uint32_t u = __byte_perm(c[2], c[3], 0x7362);  // c2 d2 c3 d3
+  t[0] = __byte_perm(p, r, 0x5410);
+  t[1] = __byte_perm(p, r, 0x7632);
+  t[2] = __byte_perm(q, u, 0x5410);
+  t[3] = __byte_perm(q, u, 0x7632);
+}
+
+__device__ __forceinline__ float raw_to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ float raw_to_float(float v) { return v; }
+
 // dst[8] += w * (8 bf16 of u)
 __device__ __forceinline__ void blend8(float* dst, const uint4& u, float w) {
   const uint32_t q[4] = {u.x, u.y, u.z, u.w};
@@ -276,8 +324,9 @@ __device__ __forceinline__ void blend8(float* dst, const uint4& u, float w) {
   }
 }
 
-template <int COUT>
+template <int COUT, typename RT>
 struct Bf16Smem {
+  static constexpr int RAW_LD = raw_chunks<RT>() * 8;  // bf16 units a row
   static constexpr int B_LD = COUT + 8;  // B tile and epilogue row stride
   static constexpr int RAW_ELEMS = 3 * BP * RAW_LD;
   static constexpr int A_STAGE = BP * A_LD;
@@ -287,23 +336,34 @@ struct Bf16Smem {
   static_assert(C_ELEMS <= RAW_ELEMS + 2 * A_STAGE, "epilogue tile fits");
 };
 
-// NV = 16-byte vectors (8 channels each) per sampling item: 2 when Cin/G is
-// a multiple of 16, else 1.
-template <int COUT, int NV>
+// CH = channels per sampling item: 16 when Cin/G is a multiple of 16, else
+// 8. I8: x is int8 (the int8 instance, dequantised by
+// dq), else bf16. RT: the raw blocks' element type (bf16, or float with I8).
+template <int COUT, int CH, bool I8, typename RT>
 __global__ void __launch_bounds__(NTHREADS, MIN_BLOCKS)
-dcn_raw_bf16(const __nv_bfloat16* __restrict__ x,
-             const __nv_bfloat16* __restrict__ res_y,
-             const __nv_bfloat16* __restrict__ res_x,
-             const __nv_bfloat16* __restrict__ mlog,
+dcn_raw_bf16(const void* __restrict__ xv, const RT* __restrict__ res_y,
+             const RT* __restrict__ res_x, const RT* __restrict__ mlog,
              const float* __restrict__ flow_y,
              const float* __restrict__ flow_x,
              const __nv_bfloat16* __restrict__ wk,
              const float* __restrict__ bias, __nv_bfloat16* __restrict__ out,
              int H, int W, int cin, int G, int A, long long raw_stride,
-             float mrm) {
-  using S = Bf16Smem<COUT>;
-  constexpr int IPP = CK / (8 * NV);         // items per pixel per K-step
+             float mrm, const float* __restrict__ dqp) {
+  using S = Bf16Smem<COUT, RT>;
+  using XT = typename std::conditional<I8, int8_t, __nv_bfloat16>::type;
+  constexpr int RPV = 16 / sizeof(RT);          // raw elements a 16-byte chunk
+  constexpr int RCH = raw_chunks<RT>();
+  constexpr int RAW_LD = S::RAW_LD;
+  constexpr int RAW_ROW = RAW_LD * 2 / sizeof(RT);  // staged raw row (RT)
+  static_assert(!(std::is_same<RT, float>::value && !I8),
+                "float raw blocks only with int8 x");
+  static_assert(3 * BP * RCH % NTHREADS == 0, "raw chunks divide evenly");
+  const XT* __restrict__ x = static_cast<const XT*>(xv);
+  const float dq = I8 ? __ldg(dqp) : 1.0f;  // the int8 dequantisation
+  constexpr int NV = CH / 8;                 // bf16: 16-byte vectors an item
+  constexpr int IPP = CK / CH;               // items per pixel per K-step
   constexpr int NI = BP * IPP / NTHREADS;    // items per thread (2 or 1)
+  static_assert(CH == 16 || CH == 8, "item width");
   constexpr int NT = COUT / 16;              // n8 tiles per warp (Cout / 2)
   constexpr int B_LD = S::B_LD;
   static_assert(NI * NTHREADS == BP * IPP, "items divide evenly");
@@ -327,23 +387,24 @@ dcn_raw_bf16(const __nv_bfloat16* __restrict__ x,
   auto raw_block = [&](int blk) {
     return blk == 0 ? res_y : blk == 1 ? res_x : mlog;
   };
-  // each raw block's data pointer in elements; masked to 3 bits with a
+  // each raw block's data pointer in elements; masked to RPV - 1 with a
   // pixel's run offset, it gives where the run starts in its first staged
   // 16-byte chunk
   const unsigned raw_mis[3] = {
-      static_cast<unsigned>(reinterpret_cast<uintptr_t>(res_y) >> 1),
-      static_cast<unsigned>(reinterpret_cast<uintptr_t>(res_x) >> 1),
-      static_cast<unsigned>(reinterpret_cast<uintptr_t>(mlog) >> 1)};
+      static_cast<unsigned>(reinterpret_cast<uintptr_t>(res_y) / sizeof(RT)),
+      static_cast<unsigned>(reinterpret_cast<uintptr_t>(res_x) / sizeof(RT)),
+      static_cast<unsigned>(reinterpret_cast<uintptr_t>(mlog) / sizeof(RT))};
+  const RT* const raw_r = reinterpret_cast<const RT*>(raw_s);
 
   // Stage the three raw blocks' runs of chunk c (groups gs..ge, 9 taps each)
-  // for the tile's pixels: 16-byte aligned windows, <= 6 chunks a pixel.
+  // for the tile's pixels: 16-byte aligned windows, <= RCH chunks a pixel.
   auto stage_raw = [&](int c) {
     const int gs = c * CK / cg, ge = (c * CK + CK - 1) / cg;
-    const int run_bytes = (ge - gs + 1) * 9 * 2;
+    const int run_bytes = (ge - gs + 1) * 9 * static_cast<int>(sizeof(RT));
 #pragma unroll 1
-    for (int i = 0; i < 3 * BP * 6 / NTHREADS; ++i) {
+    for (int i = 0; i < 3 * BP * RCH / NTHREADS; ++i) {
       const int it = tid + i * NTHREADS;
-      const int blk = it / (BP * 6), p = (it / 6) % BP, w = it % 6;
+      const int blk = it / (BP * RCH), p = (it / RCH) % BP, w = it % RCH;
       const int pix = pixel(p);
       const uintptr_t a0 = reinterpret_cast<uintptr_t>(
           raw_block(blk) + (pix < 0 ? 0 : pix) * raw_stride + gs * 9);
@@ -369,13 +430,13 @@ dcn_raw_bf16(const __nv_bfloat16* __restrict__ x,
   // A thread's sampling items are tile pixels (tid + i * NTHREADS) / IPP,
   // all at the same vector j of the chunk.
   const int j = tid % IPP;
-  const __nv_bfloat16* const xb = x + (long long)b * H * W * cin;
+  const XT* const xb = x + (long long)b * H * W * cin;
   const int row_elems = W * cin;  // one image row of x
   float fly[NI], flx[NI];  // the items' anchor flow in the current chunk
 
   // The flow of each item's anchor in chunk c: read once a chunk.
   auto load_flows = [&](int c) {
-    const int a = (c * CK + j * 8 * NV) / cg / ga;
+    const int a = (c * CK + j * CH) / cg / ga;
 #pragma unroll
     for (int i = 0; i < NI; ++i) {
       const int pix = pixel((tid + i * NTHREADS) / IPP);
@@ -384,13 +445,13 @@ dcn_raw_bf16(const __nv_bfloat16* __restrict__ x,
     }
   };
   // Item i of step s into A's stage s & 1: its prep once per (pixel, group,
-  // tap) whenever NV vectors cover the group, then one vector at a time,
+  // tap) whenever the item covers the group, then one vector at a time,
   // four corner loads in flight (a thread holds 16 bytes x 4, not x 4 x NV x
   // NI, which keeps the 64 accumulators of Cout = 128 out of local memory).
   auto sample = [&](int s, int i) {
     const int c = s / 9, k = s % 9;
     const int gs = c * CK / cg;
-    const int c0 = c * CK + j * 8 * NV;   // first channel of the item
+    const int c0 = c * CK + j * CH;       // first channel of the item
     const int r = (c0 / cg - gs) * 9 + k; // (group, tap) within the run
     const int p = (tid + i * NTHREADS) / IPP;
     const int y = ty0 + p / TW, xx = tx0 + p % TW;
@@ -405,21 +466,44 @@ dcn_raw_bf16(const __nv_bfloat16* __restrict__ x,
       float v[3];
 #pragma unroll
       for (int blk = 0; blk < 3; ++blk)
-        v[blk] = __bfloat162float(
-            raw_s[(blk * BP + p) * RAW_LD + ((raw_mis[blk] + e) & 7u) + r]);
-      const float sy = (float)(y + k / 3 - 1) + mrm * tanh_prep(v[0]) + fly[i];
-      const float sx = (float)(xx + k % 3 - 1) + mrm * tanh_prep(v[1]) + flx[i];
-      const float m = sigmoid_prep(v[2]);
+        v[blk] = raw_to_float(raw_r[(blk * BP + p) * RAW_ROW +
+                                    ((raw_mis[blk] + e) & (RPV - 1u)) + r]);
+      // int8: (tap + pixel) + (mrm * tanh + flow), each op rounded on its
+      // own, in the twin's order (its integer corner weights follow sy, sx)
+      const float sy = I8 ? (float)(y + k / 3 - 1) +
+                                __fadd_rn(__fmul_rn(mrm, tanh_prep(v[0])),
+                                          fly[i])
+                          : (float)(y + k / 3 - 1) + mrm * tanh_prep(v[0]) +
+                                fly[i];
+      const float sx = I8 ? (float)(xx + k % 3 - 1) +
+                                __fadd_rn(__fmul_rn(mrm, tanh_prep(v[1])),
+                                          flx[i])
+                          : (float)(xx + k % 3 - 1) + mrm * tanh_prep(v[1]) +
+                                flx[i];
+      float m = sigmoid_prep(v[2]);
+      if (I8) m = __bfloat162float(__float2bfloat16_rn(m));
       const float y0 = floorf(sy), x0 = floorf(sx);
       const float ly = sy - y0, lx = sx - x0;
       const bool vy0 = y0 >= 0.0f && y0 <= (float)(H - 1);
       const bool vy1 = y0 + 1.0f >= 0.0f && y0 + 1.0f <= (float)(H - 1);
       const bool vx0 = x0 >= 0.0f && x0 <= (float)(W - 1);
       const bool vx1 = x0 + 1.0f >= 0.0f && x0 + 1.0f <= (float)(W - 1);
-      cw[0] = (vy0 && vx0) ? (1.0f - ly) * (1.0f - lx) * m : 0.0f;
-      cw[1] = (vy0 && vx1) ? (1.0f - ly) * lx * m : 0.0f;
-      cw[2] = (vy1 && vx0) ? ly * (1.0f - lx) * m : 0.0f;
-      cw[3] = (vy1 && vx1) ? ly * lx * m : 0.0f;
+      if (I8) {
+        // JAX's int8 window weights: ((wy * m) * wx) * 127, rounded to even
+        auto w8 = [](float wy, float wx) {
+          return rintf(__fmul_rn(__fmul_rn(wy, wx), 127.0f));
+        };
+        const float wy0 = __fmul_rn(1.0f - ly, m), wy1 = __fmul_rn(ly, m);
+        cw[0] = (vy0 && vx0) ? w8(wy0, 1.0f - lx) : 0.0f;
+        cw[1] = (vy0 && vx1) ? w8(wy0, lx) : 0.0f;
+        cw[2] = (vy1 && vx0) ? w8(wy1, 1.0f - lx) : 0.0f;
+        cw[3] = (vy1 && vx1) ? w8(wy1, lx) : 0.0f;
+      } else {
+        cw[0] = (vy0 && vx0) ? (1.0f - ly) * (1.0f - lx) * m : 0.0f;
+        cw[1] = (vy0 && vx1) ? (1.0f - ly) * lx * m : 0.0f;
+        cw[2] = (vy1 && vx0) ? ly * (1.0f - lx) * m : 0.0f;
+        cw[3] = (vy1 && vx1) ? ly * lx * m : 0.0f;
+      }
       // (y0, x0) clamped to [-1, H-1] x [-1, W-1]: beyond that no corner
       // is read, and the index stays in range
       const int iy = (int)fminf(fmaxf(y0, -1.0f), (float)(H - 1));
@@ -427,21 +511,68 @@ dcn_raw_bf16(const __nv_bfloat16* __restrict__ x,
       base = (long long)(iy * W + ix) * cin + c0;
     }
     const long long coff[4] = {0, cin, row_elems, row_elems + cin};
-    __nv_bfloat16* dst = a_s + (s & 1) * S::A_STAGE + p * A_LD + j * 8 * NV;
+    __nv_bfloat16* dst = a_s + (s & 1) * S::A_STAGE + p * A_LD + j * CH;
+    if constexpr (I8) {
+      // one CH-byte load a corner; w2 packed as four s8 for __dp4a
+      constexpr int NW = CH / 4;  // 4-channel words a corner
+      const int wpack = static_cast<int>(
+          static_cast<uint32_t>(cw[0]) | static_cast<uint32_t>(cw[1]) << 8 |
+          static_cast<uint32_t>(cw[2]) << 16 |
+          static_cast<uint32_t>(cw[3]) << 24);
+      uint32_t cu[NW][4];
 #pragma unroll
-    for (int v = 0; v < NV; ++v) {
-      uint4 cu[4];
+      for (int q = 0; q < 4; ++q) {
+        const XT* src = xb + base + coff[q];
+        if constexpr (CH == 16) {
+          const uint4 u = cw[q] != 0.0f
+              ? __ldg(reinterpret_cast<const uint4*>(src))
+              : make_uint4(0u, 0u, 0u, 0u);
+          cu[0][q] = u.x; cu[1][q] = u.y; cu[NW - 2][q] = u.z;
+          cu[NW - 1][q] = u.w;
+        } else {
+          const uint2 u = cw[q] != 0.0f
+              ? __ldg(reinterpret_cast<const uint2*>(src))
+              : make_uint2(0u, 0u);
+          cu[0][q] = u.x; cu[NW - 1][q] = u.y;
+        }
+      }
+      // word v: 4 channels, one __dp4a each, dequantised; 2 bf16 a word
+      uint32_t packed[CH / 2];
 #pragma unroll
-      for (int q = 0; q < 4; ++q)
-        cu[q] = cw[q] != 0.0f
-            ? __ldg(reinterpret_cast<const uint4*>(xb + base + coff[q] + v * 8))
-            : make_uint4(0u, 0u, 0u, 0u);
-      float acc8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+      for (int v = 0; v < NW; ++v) {
+        uint32_t t[4];
+        transpose4x4(cu[v], t);
+        float f4[4];
 #pragma unroll
-      for (int q = 0; q < 4; ++q) blend8(acc8, cu[q], cw[q]);
-      *reinterpret_cast<uint4*>(dst + v * 8) =
-          make_uint4(pack_bf16(acc8[0], acc8[1]), pack_bf16(acc8[2], acc8[3]),
-                     pack_bf16(acc8[4], acc8[5]), pack_bf16(acc8[6], acc8[7]));
+        for (int c = 0; c < 4; ++c)
+          f4[c] = __fmul_rn(
+              static_cast<float>(__dp4a(static_cast<int>(t[c]), wpack, 0)),
+              dq);
+        packed[2 * v] = pack_bf16(f4[0], f4[1]);
+        packed[2 * v + 1] = pack_bf16(f4[2], f4[3]);
+      }
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+        *reinterpret_cast<uint4*>(dst + v * 8) =
+            make_uint4(packed[4 * v], packed[4 * v + 1], packed[4 * v + 2],
+                       packed[4 * v + 3]);
+    } else {
+#pragma unroll
+      for (int v = 0; v < NV; ++v) {
+        uint4 cu[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q)
+          cu[q] = cw[q] != 0.0f
+              ? __ldg(reinterpret_cast<const uint4*>(xb + base + coff[q] +
+                                                     v * 8))
+              : make_uint4(0u, 0u, 0u, 0u);
+        float acc8[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int q = 0; q < 4; ++q) blend8(acc8, cu[q], cw[q]);
+        *reinterpret_cast<uint4*>(dst + v * 8) = make_uint4(
+            pack_bf16(acc8[0], acc8[1]), pack_bf16(acc8[2], acc8[3]),
+            pack_bf16(acc8[4], acc8[5]), pack_bf16(acc8[6], acc8[7]));
+      }
     }
   };
   // Step s's samples into A's stage s & 1.
@@ -561,27 +692,28 @@ cudaError_t launch_f32(const void* x, const void* ry, const void* rx,
   return cudaGetLastError();
 }
 
-template <int COUT, int NV>
+template <int COUT, int CH, bool I8, typename RT>
 cudaError_t launch_bf16(const void* x, const void* ry, const void* rx,
                         const void* ml, const void* fy, const void* fx,
                         const void* wk, const void* bias, void* out, int npix,
                         int H, int W, int cin, int G, int A,
-                        long long raw_stride, float mrm, cudaStream_t stream) {
-  constexpr int SMEM = Bf16Smem<COUT>::BYTES;
+                        long long raw_stride, float mrm, const float* dq,
+                        cudaStream_t stream) {
+  constexpr int SMEM = Bf16Smem<COUT, RT>::BYTES;
   // shared memory above 48 KB is opt-in (set on every launch: the
   // attribute belongs to the current device's context)
   const cudaError_t e = cudaFuncSetAttribute(
-      dcn_raw_bf16<COUT, NV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      SMEM);
+      dcn_raw_bf16<COUT, CH, I8, RT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
   if (e != cudaSuccess) return e;
   using B16 = __nv_bfloat16;
   const dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, npix / (H * W));
-  dcn_raw_bf16<COUT, NV><<<grid, NTHREADS, SMEM, stream>>>(
-      static_cast<const B16*>(x), static_cast<const B16*>(ry),
-      static_cast<const B16*>(rx), static_cast<const B16*>(ml),
-      static_cast<const float*>(fy), static_cast<const float*>(fx),
-      static_cast<const B16*>(wk), static_cast<const float*>(bias),
-      static_cast<B16*>(out), H, W, cin, G, A, raw_stride, mrm);
+  dcn_raw_bf16<COUT, CH, I8, RT><<<grid, NTHREADS, SMEM, stream>>>(
+      x, static_cast<const RT*>(ry), static_cast<const RT*>(rx),
+      static_cast<const RT*>(ml), static_cast<const float*>(fy),
+      static_cast<const float*>(fx), static_cast<const B16*>(wk),
+      static_cast<const float*>(bias), static_cast<B16*>(out), H, W, cin, G,
+      A, raw_stride, mrm, dq);
   return cudaGetLastError();
 }
 
@@ -594,11 +726,47 @@ cudaError_t dispatch(bool bf16, const void* x, const void* ry, const void* rx,
   if (!bf16)
     return launch_f32<COUT>(x, ry, rx, ml, fy, fx, wk, bias, out, npix, H, W,
                             cin, G, A, raw_stride, mrm, s);
+  using B16 = __nv_bfloat16;
   if ((cin / G) % 16 == 0)
-    return launch_bf16<COUT, 2>(x, ry, rx, ml, fy, fx, wk, bias, out, npix, H,
-                                W, cin, G, A, raw_stride, mrm, s);
-  return launch_bf16<COUT, 1>(x, ry, rx, ml, fy, fx, wk, bias, out, npix, H,
-                              W, cin, G, A, raw_stride, mrm, s);
+    return launch_bf16<COUT, 16, false, B16>(x, ry, rx, ml, fy, fx, wk, bias,
+                                             out, npix, H, W, cin, G, A,
+                                             raw_stride, mrm, nullptr, s);
+  return launch_bf16<COUT, 8, false, B16>(x, ry, rx, ml, fy, fx, wk, bias,
+                                          out, npix, H, W, cin, G, A,
+                                          raw_stride, mrm, nullptr, s);
+}
+
+// The int8 instance at the item width Cin/G allows, raw blocks RT.
+template <int COUT, typename RT>
+cudaError_t dispatch_int8(const void* x, const void* ry, const void* rx,
+                          const void* ml, const void* fy, const void* fx,
+                          const void* wk, const void* bias, void* out,
+                          int npix, int H, int W, int cin, int G, int A,
+                          long long raw_stride, float mrm, const float* dq,
+                          cudaStream_t s) {
+  if ((cin / G) % 16 == 0)
+    return launch_bf16<COUT, 16, true, RT>(x, ry, rx, ml, fy, fx, wk, bias,
+                                           out, npix, H, W, cin, G, A,
+                                           raw_stride, mrm, dq, s);
+  return launch_bf16<COUT, 8, true, RT>(x, ry, rx, ml, fy, fx, wk, bias, out,
+                                        npix, H, W, cin, G, A, raw_stride,
+                                        mrm, dq, s);
+}
+
+template <int COUT>
+cudaError_t dispatch_int8(bool raw_f32, const void* x, const void* ry,
+                          const void* rx, const void* ml, const void* fy,
+                          const void* fx, const void* wk, const void* bias,
+                          void* out, int npix, int H, int W, int cin, int G,
+                          int A, long long raw_stride, float mrm,
+                          const float* dq, cudaStream_t s) {
+  if (raw_f32)
+    return dispatch_int8<COUT, float>(x, ry, rx, ml, fy, fx, wk, bias, out,
+                                      npix, H, W, cin, G, A, raw_stride, mrm,
+                                      dq, s);
+  return dispatch_int8<COUT, __nv_bfloat16>(x, ry, rx, ml, fy, fx, wk, bias,
+                                            out, npix, H, W, cin, G, A,
+                                            raw_stride, mrm, dq, s);
 }
 
 }  // namespace
@@ -632,6 +800,44 @@ int dcn_raw_forward(int is_bf16, const void* x, const void* res_y,
     case 128:
       rc = dispatch<128>(bf, x, res_y, res_x, mask_logits, flow_y, flow_x, wk,
                          bias, out, npix, H, W, cin, G, A, raw_stride, mrm, s);
+      break;
+    default:
+      return -1;
+  }
+  return static_cast<int>(rc);
+}
+
+// The int8 instance: xq int8 (B, H, W, Cin), dq = max|x| / 127^2 (one
+// float32 on the card, read by the kernel: no host sync a call), raw
+// blocks bf16 (raw_f32 = 0) or float32 (raw_f32 = 1), wk bf16 (9, Cin,
+// Cout), out bf16. Flows and bias float32. Returns the launch's CUDA error
+// code, or -1 for an unsupported Cout. xq, wk and out 16-byte aligned,
+// Cin % 32 == 0 and (Cin / G) % 8 == 0 (the wrapper checks).
+int dcn_raw_forward_int8(const void* xq, const void* res_y, const void* res_x,
+                         const void* mask_logits, const void* flow_y,
+                         const void* flow_x, const void* wk, const void* bias,
+                         void* out, int npix, int H, int W, int cin, int cout,
+                         int G, int A, long long raw_stride, float mrm,
+                         const void* dq, int raw_f32, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* d = static_cast<const float*>(dq);
+  const bool rf = raw_f32 != 0;
+  cudaError_t rc;
+  switch (cout) {
+    case 32:
+      rc = dispatch_int8<32>(rf, xq, res_y, res_x, mask_logits, flow_y,
+                             flow_x, wk, bias, out, npix, H, W, cin, G, A,
+                             raw_stride, mrm, d, s);
+      break;
+    case 64:
+      rc = dispatch_int8<64>(rf, xq, res_y, res_x, mask_logits, flow_y,
+                             flow_x, wk, bias, out, npix, H, W, cin, G, A,
+                             raw_stride, mrm, d, s);
+      break;
+    case 128:
+      rc = dispatch_int8<128>(rf, xq, res_y, res_x, mask_logits, flow_y,
+                              flow_x, wk, bias, out, npix, H, W, cin, G, A,
+                              raw_stride, mrm, d, s);
       break;
     default:
       return -1;

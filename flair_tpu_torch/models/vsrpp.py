@@ -10,7 +10,8 @@ the loop. At the first frame of a branch the alignment is skipped and the
 aligned feature is zero (the reference multiplies it by zero).
 
 Every alignment calls ``ops.dcn.deform_conv2d_raw``: the CUDA kernel on the
-card, its plain twin on the CPU.
+card, its plain twin on the CPU. ``FLAIR_DCN_INT8=1`` selects its int8
+instance, as the JAX package's ``_tile_config`` reads the variable.
 
 Conventions: hidden features (B·T, C, H, W) channels_last; flows
 (B, T-1, 2, H, W) float32, channel 0 = dx; gating weights in the host layout
@@ -18,6 +19,8 @@ Conventions: hidden features (B·T, C, H, W) channels_last; flows
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 import torch
@@ -93,7 +96,14 @@ def apply_deform_align(x, raw_y, raw_x, mask_logits, flow_1, flow_2, weight,
     ``mask_logits`` (B, H, W, G·9) NHWC views in (group, tap) order (the
     first G/2 groups anchored on flow 1); ``flow_1``/``flow_2`` (fx, fy)
     tuples of (B, H, W) planes; ``weight`` (C, 2C, 3, 3). Offsets, masks
-    and sample coordinates stay float32; values run in ``dtype``."""
+    and sample coordinates stay float32; values run in ``dtype``.
+
+    ``FLAIR_DCN_INT8=1`` in the environment (read at every call, default
+    off) runs the DCN's int8 instance, as JAX's ``_tile_config``
+    (``flair_tpu/models/vsrpp.py:81``) passes ``int8_dots`` to every K1
+    call. JAX takes its exact patch path off the TPU and never runs int8
+    there; the port runs its kernel's numbers on every device."""
+    int8 = os.environ.get("FLAIR_DCN_INT8", "0") == "1"
     f1x, f1y = flow_1
     f2x, f2y = flow_2
     flow_y = torch.stack([f1y, f2y], dim=-1).float().contiguous()
@@ -101,7 +111,7 @@ def apply_deform_align(x, raw_y, raw_x, mask_logits, flow_1, flow_2, weight,
     xv = nhwc(x.to(dtype)).contiguous()
     y = deform_conv2d_raw(xv, raw_y.to(dtype), raw_x.to(dtype),
                           mask_logits.to(dtype), flow_y, flow_x, weight, bias,
-                          float(max_residue_magnitude))
+                          float(max_residue_magnitude), int8_dots=int8)
     return nchw(y).to(x.dtype)
 
 

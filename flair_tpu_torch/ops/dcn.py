@@ -10,16 +10,26 @@ with the raw offset prep fused in (``off = mrm·tanh(res) + flow_half``,
   plain version (``ops/deform.py``).
 - A CUDA tensor launches the kernel or raises; nothing falls back.
 - ``deform_conv2d_raw.launches`` counts kernel launches (a plain int that
-  callers reset to 0 and read).
+  callers reset to 0 and read), ``deform_conv2d_raw.launches_int8`` the
+  int8 instance's apart from them.
+- ``int8_dots=True`` is the counterpart of JAX's ``FLAIR_DCN_INT8`` path
+  (``int8_dots`` of ``deform_conv2d_tile_raw_ad``): x is quantised once a
+  call in plain PyTorch (``deform.quantize_values``, as JAX quantises
+  outside its ``pallas_call``), then the kernel's int8 instance samples
+  it with integer corner weights; the taps stay bf16 and the output is
+  rounded to bf16 and returned in x.dtype. On the CPU it is the int8 twin
+  (``deform.deform_conv2d_int8``).
 - It is a ``torch.autograd.Function``, the counterpart of the JAX
   ``custom_vjp`` (``_tile_raw_ad_bwd``): the forward is the kernel (or the
   plain version on the CPU), the backward recomputes the plain raw prep
   and exact DCN (``materialize_raw`` + ``modulated_deform_conv2d``) and
-  takes their VJP for all eight tensor inputs. Only the forward launches
-  the kernel. The backward runs in float32 whatever the inputs' dtype and
-  casts each gradient to its input's dtype: the x gradient sums up to 9·G
-  bilinear contributions a pixel through ``index_add``, and a bf16 sum of
-  them would lose digits the JAX backward keeps.
+  takes their VJP for all eight tensor inputs, whatever ``int8_dots`` (as
+  JAX's ``_tile_raw_ad_bwd`` takes the flag and ignores it). Only the
+  forward launches the kernel. The backward runs in float32 whatever the
+  inputs' dtype and casts each gradient to its input's dtype: the x
+  gradient sums up to 9·G bilinear contributions a pixel through
+  ``index_add``, and a bf16 sum of them would lose digits the JAX
+  backward keeps.
 """
 
 from __future__ import annotations
@@ -29,7 +39,8 @@ import ctypes
 import torch
 
 from ..utils import build
-from .deform import deform_conv2d_raw_plain
+from .deform import (
+    deform_conv2d_raw_plain, dequant_scale, quantize_values)
 
 KERNEL = "dcn_raw"
 SUPPORTED_COUT = (32, 64, 128)
@@ -41,11 +52,15 @@ _SIGNATURES = {
     "dcn_raw_forward": ([_I, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                          _I, _I, _I, _I, _I, _I, _I, ctypes.c_longlong,
                          ctypes.c_float, _P], _I),
+    "dcn_raw_forward_int8": ([_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _I, _I, _I, _I, _I, _I, _I, ctypes.c_longlong,
+                              ctypes.c_float, _P, _I, _P], _I),
     "dcn_error_string": ([_I], ctypes.c_char_p),
 }
 
 
-def _check(x, res_y, res_x, mask_logits, flow_y, flow_x, weight, bias):
+def _check(x, res_y, res_x, mask_logits, flow_y, flow_x, weight, bias,
+           int8_dots=False):
     """Raise on anything the kernel does not take. Returns (G, A, raw_stride)."""
     tensors = [x, res_y, res_x, mask_logits, flow_y, flow_x, weight]
     if bias is not None:
@@ -75,13 +90,15 @@ def _check(x, res_y, res_x, mask_logits, flow_y, flow_x, weight, bias):
     for t in (flow_y, flow_x):
         if tuple(t.shape) != (b, h, w, a) or not t.is_contiguous():
             raise ValueError("flows must be contiguous (B, H, W, A)")
-    vec = 16 // x.element_size()
+    # channels a sampling item: 16 bytes of bf16 / f32; int8 items load 8
+    # or 16 bytes (the bf16 instance's items, quantised)
+    vec = 8 if int8_dots else 16 // x.element_size()
     if (gk % 9 or g == 0 or g % a or cin % g or cin % _CK
             or (cin // g) % vec or cout not in SUPPORTED_COUT):
         raise ValueError(
             f"deform_conv2d_raw: unsupported config Cin={cin} Cout={cout} "
-            f"G={g} A={a} (need Cin % {_CK} == 0, (Cin/G) % {vec} == 0, "
-            f"Cout in {SUPPORTED_COUT})")
+            f"G={g} A={a} int8_dots={int8_dots} (need Cin % {_CK} == 0, "
+            f"(Cin/G) % {vec} == 0, Cout in {SUPPORTED_COUT})")
     if not x.is_contiguous() or x.data_ptr() % 16:
         raise ValueError("x must be contiguous NHWC and 16-byte aligned")
     s = res_y.stride()
@@ -93,28 +110,46 @@ def _check(x, res_y, res_x, mask_logits, flow_y, flow_x, weight, bias):
 
 
 def _launch(x, res_y, res_x, mask_logits, flow_y, flow_x, weight, bias,
-            mrm: float, g: int, a: int, raw_stride: int):
-    """One launch of the kernel on checked CUDA tensors."""
+            mrm: float, g: int, a: int, raw_stride: int, int8_dots=False):
+    """One launch of the kernel on checked CUDA tensors. ``int8_dots``:
+    quantise x (plain PyTorch), launch the int8 instance, return its bf16
+    output in x.dtype."""
     b, h, w, cin = x.shape
     cout = weight.shape[0]
-    # (Cout, Cin, 3, 3) -> (9, Cin, Cout) in x.dtype: one cast-and-copy launch
-    wk = torch.empty((9, cin, cout), dtype=x.dtype, device=x.device)
+    kdt = torch.bfloat16 if int8_dots else x.dtype
+    # (Cout, Cin, 3, 3) -> (9, Cin, Cout) in the kernel's dtype: one
+    # cast-and-copy launch
+    wk = torch.empty((9, cin, cout), dtype=kdt, device=x.device)
     wk.copy_(weight.permute(2, 3, 1, 0).reshape(9, cin, cout))
     b32 = (torch.zeros(cout, device=x.device) if bias is None
            else bias.float().contiguous())
-    out = torch.empty((b, h, w, cout), dtype=x.dtype, device=x.device)
+    out = torch.empty((b, h, w, cout), dtype=kdt, device=x.device)
     lib = build.load(KERNEL, _SIGNATURES)
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.dcn_raw_forward(
-            int(x.dtype == torch.bfloat16), x.data_ptr(), res_y.data_ptr(),
-            res_x.data_ptr(), mask_logits.data_ptr(), flow_y.data_ptr(),
-            flow_x.data_ptr(), wk.data_ptr(), b32.data_ptr(), out.data_ptr(),
-            b * h * w, h, w, cin, cout, g, a, raw_stride, float(mrm), stream)
+        if int8_dots:
+            xq, sx = quantize_values(x)
+            dq = dequant_scale(sx)   # stays on the card: no host sync
+            rc = lib.dcn_raw_forward_int8(
+                xq.data_ptr(), res_y.data_ptr(), res_x.data_ptr(),
+                mask_logits.data_ptr(), flow_y.data_ptr(), flow_x.data_ptr(),
+                wk.data_ptr(), b32.data_ptr(), out.data_ptr(), b * h * w, h,
+                w, cin, cout, g, a, raw_stride, float(mrm), dq.data_ptr(),
+                int(x.dtype == torch.float32), stream)
+        else:
+            rc = lib.dcn_raw_forward(
+                int(x.dtype == torch.bfloat16), x.data_ptr(),
+                res_y.data_ptr(), res_x.data_ptr(), mask_logits.data_ptr(),
+                flow_y.data_ptr(), flow_x.data_ptr(), wk.data_ptr(),
+                b32.data_ptr(), out.data_ptr(), b * h * w, h, w, cin, cout,
+                g, a, raw_stride, float(mrm), stream)
     if rc != 0:
-        msg = ("unsupported Cout" if rc < 0
+        msg = ("unsupported configuration" if rc < 0
                else lib.dcn_error_string(rc).decode())
         raise RuntimeError(f"dcn_raw kernel launch failed ({rc}): {msg}")
+    if int8_dots:
+        deform_conv2d_raw.launches_int8 += 1
+        return out.to(x.dtype)
     deform_conv2d_raw.launches += 1
     return out
 
@@ -125,20 +160,21 @@ class _DeformConvRaw(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, res_y, res_x, mask_logits, flow_y, flow_x, weight,
-                bias, mrm):
+                bias, mrm, int8_dots):
         g, a, raw_stride = _check(x, res_y, res_x, mask_logits, flow_y,
-                                  flow_x, weight, bias)
+                                  flow_x, weight, bias, int8_dots)
         # the raw blocks stay the views they came as: saved, not copied
         ctx.save_for_backward(x, res_y, res_x, mask_logits, flow_y, flow_x,
                               weight, bias)
         ctx.mrm = mrm
         if x.device.type == "cpu":
             return deform_conv2d_raw_plain(x, res_y, res_x, mask_logits,
-                                           flow_y, flow_x, weight, bias, mrm)
+                                           flow_y, flow_x, weight, bias, mrm,
+                                           int8_dots)
         if x.device.type != "cuda":
             raise ValueError(f"deform_conv2d_raw: no kernel for {x.device}")
         return _launch(x, res_y, res_x, mask_logits, flow_y, flow_x, weight,
-                       bias, mrm, g, a, raw_stride)
+                       bias, mrm, g, a, raw_stride, int8_dots)
 
     @staticmethod
     def backward(ctx, grad_out):
@@ -152,11 +188,11 @@ class _DeformConvRaw(torch.autograd.Function):
             wrt = [v for v, n in zip(leaves, need) if n]
             grads = iter(torch.autograd.grad(out, wrt, grad_out.float()))
         return (*(next(grads).to(t.dtype) if n else None
-                  for t, n in zip(saved, need)), None)
+                  for t, n in zip(saved, need)), None, None)
 
 
 def deform_conv2d_raw(x, res_y, res_x, mask_logits, flow_y, flow_x, weight,
-                      bias, mrm: float):
+                      bias, mrm: float, int8_dots: bool = False):
     """Flow-anchored modulated DCN with fused raw prep, differentiable in
     every tensor argument.
 
@@ -165,9 +201,11 @@ def deform_conv2d_raw(x, res_y, res_x, mask_logits, flow_y, flow_x, weight,
     x's dtype (views of one NHWC tensor are fine: they share a pixel
     stride); flow_y, flow_x (B, H, W, A) float32 per-anchor flow planes;
     weight (Cout, Cin, 3, 3); bias (Cout,) or None; mrm the max residue
-    magnitude. Returns (B, H, W, Cout) in x.dtype."""
+    magnitude; ``int8_dots`` the int8 instance (module docstring). Returns
+    (B, H, W, Cout) in x.dtype."""
     return _DeformConvRaw.apply(x, res_y, res_x, mask_logits, flow_y, flow_x,
-                                weight, bias, float(mrm))
+                                weight, bias, float(mrm), bool(int8_dots))
 
 
 deform_conv2d_raw.launches = 0
+deform_conv2d_raw.launches_int8 = 0
