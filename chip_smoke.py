@@ -46,7 +46,12 @@ Phases, one JSON line each (a record per shape for the kernels):
                then each of the three variants against its plain version
                at PROBE_CHECK_GRID grid steps, timed at the TPU constants
                (GRID 1024, REPS 32, BC 576) beside REPS torch.bmm (bf16) /
-               torch._int_mm (int8) calls, their layout copy timed apart
+               torch._int_mm (int8) calls, their layout copy timed apart,
+               each with its share of the bound, and the int8 variants'
+               speed-up over bf16 at each UVP; then correctness-only rows
+               (PROBE_EDGE): one K tile, rings that never fill, BC of one
+               block, REPS 1-3, ramps, int32 sums at their extreme,
+               quantised ties
   slice_small  the x8 test configuration on cuda (kernel) vs cpu (plain)
   slice_small_blur  the gaussian and jpeg test configurations (goldens'
                widths, 32-channel heads) on cuda (both kernels) vs cpu;
@@ -291,6 +296,20 @@ SLICE_INT8_PSNR_DB = 40.0
 PROBE_UVPS = (256, 384)
 PROBE_CHECK_GRID = 4
 PROBE_BF16_TOL = 5e-5
+# correctness-only K3 rows: (probe variant, UVP, BC, REPS, operand pattern
+# of probe_int8.make_inputs), PROBE_CHECK_GRID grid steps. One K tile and
+# rings that never fill (UVP 64 / 128 / 192 at REPS 1-3, int8 K zero-padded
+# to 128), BC of one block (192; 64 quantised), ramps whose 64 x 8 output
+# blocks all differ, int32 sums at their extreme (+127 x -127), quantised
+# ties.
+PROBE_EDGE = tuple(
+    row for v in range(3) for row in (
+        (v, 64, probe_int8.BLOCK_ROWS[v], 1, "ramp"),
+        (v, 128, 576, 2, "ramp"),
+        (v, 192, probe_int8.BLOCK_ROWS[v], 3, "random"),
+        (v, 256, 576, 32, "ramp"))) + (
+    (1, 384, 576, 32, "extreme"), (2, 384, 576, 32, "extreme"),
+    (2, 256, 576, 32, "half_steps"))
 # K2 at the BlurUNet's attention sites, one 10-frame window, D = 64:
 # (S, heads, dtype, calls per denoiser step)
 FLASH_N, FLASH_D = 10, 64
@@ -993,7 +1012,9 @@ def phase_kernel_probe(ctx):
     """K3 (csrc/probe_dot.cu): the probe's entry point in process at each
     UVP, its launches counted (the main path of this kernel); then each
     variant against its plain version at PROBE_CHECK_GRID grid steps and
-    timed at the TPU constants beside the library's products."""
+    timed at the TPU constants beside the library's products (with its
+    share of the bound, and the int8 variants' speed-up over bf16 at each
+    UVP); then the PROBE_EDGE rows, checked only."""
     dev = torch.device("cuda")
     launches = {}
     for uvp in PROBE_UVPS:
@@ -1045,6 +1066,7 @@ def phase_kernel_probe(ctx):
                    "library_kernel": lib_names, "library_copy_ms": copy_ms,
                    "bound_ms": max(t_ops, t_bytes),
                    "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                   "pct_of_bound": 100 * max(t_ops, t_bytes) / ms,
                    "ops": ops, "bytes": nbytes,
                    "tops": ops / ms / 1e9, "card": ctx["smi"]}
             emit(row)
@@ -1053,6 +1075,35 @@ def phase_kernel_probe(ctx):
             torch.cuda.empty_cache()
             if not rel <= tol:
                 raise AssertionError(f"probe kernel disagrees: {row}")
+        by = {r["dtype"]: r["ms"] for r in rows if r["uvp"] == uvp}
+        names = list(probe_int8.VARIANTS)
+        emit({"phase": "kernel_probe", "uvp": uvp,
+              "speedup_over_bf16": {n: by[names[0]] / by[n]
+                                    for n in names[1:]},
+              "card": ctx["smi"]})
+    for v, uvp, bc, reps, pattern in PROBE_EDGE:
+        name = list(probe_int8.VARIANTS)[v]
+        _, _, acc, quant = probe_int8.VARIANTS[name]
+        a, b = probe_int8.make_inputs(name, PROBE_CHECK_GRID, uvp, reps=reps,
+                                      bc=bc, seed=40 + len(rows), device=dev,
+                                      pattern=pattern)
+        saved = probe_int8.probe_dot.launches
+        out = probe_int8.probe_dot(a, b, acc, quant)
+        probe_int8.probe_dot.launches = saved
+        ref = probe_int8.probe_dot_plain(a, b, acc, quant)
+        err = (out.double() - ref.double()).abs().max().item()
+        rel = err / ref.double().abs().max().item()
+        tol = PROBE_BF16_TOL if acc == torch.float32 else 0.0
+        row = {"dtype": name, "uvp": uvp, "pattern": pattern,
+               "shape": f"a({PROBE_CHECK_GRID},{uvp},{bc}) b({reps},{uvp},128)",
+               "max_abs_err": err, "max_rel_err": rel, "tol_rel": tol}
+        if pattern == "half_steps":
+            x = a * 127.0
+            row["ties"] = ((x - x.floor()) == 0.5).double().mean().item()
+        emit({"phase": "kernel_probe", **row})
+        rows.append(row)
+        if not rel <= tol:
+            raise AssertionError(f"probe kernel disagrees: {row}")
     ctx["probe_rows"] = rows
 
 

@@ -9,9 +9,10 @@ variants of ``out[g] = Σ_{r<REPS} a[g]ᵀ · b[r]``:
 2. int8 × int8 → int32
 3. f32 ``a`` quantised in the kernel (``round(a · 127)`` → int8) × int8 → int32
 
-``probe_dot`` launches the hand-written kernel (``csrc/probe_dot.cu``) on
-CUDA tensors and runs ``probe_dot_plain`` on CPU tensors;
-``probe_dot.launches`` counts kernel launches.
+``probe_dot`` launches the hand-written kernel (``csrc/probe_dot.cu``:
+wgmma from a[g]'s slice held in shared memory, b fed by TMA) on CUDA
+tensors and runs ``probe_dot_plain`` on CPU tensors; both refuse shapes the
+kernel does not take. ``probe_dot.launches`` counts kernel calls.
 
     python -m flair_tpu_torch.tools.probe_int8 [uvp] [--device cpu]
 
@@ -40,7 +41,13 @@ GRID = 1024     # grid steps: distinct a blocks
 REPS = 32       # distinct dots a grid step (distinct b)
 BC = 576        # rows a (tile, anchor) chunk at (2, 4) tiles
 LANES = 128
-BM, BK = 192, 64   # the kernel's block rows of BC and K step (int8 bytes)
+# the kernel's shapes: UVP a multiple of UVP_STEP up to MAX_UVP (a[g]'s slice
+# and the b ring fill shared memory at 384), BC a multiple of the block rows
+# (three 64-row warpgroups; one for the quantised variant, whose f32 slice
+# stays on chip)
+UVP_STEP, MAX_UVP = 64, 384
+BLOCK_ROWS = (192, 192, 64)
+MAX_GRID = 65535
 # name -> (a dtype, b dtype, accumulator dtype, quantise a in the kernel)
 VARIANTS = {
     "bf16 x bf16 -> f32": (torch.bfloat16, torch.bfloat16, torch.float32,
@@ -52,7 +59,7 @@ VARIANTS = {
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "probe_dot": ([_I, _P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "probe_dot": ([_I, _P, _P, _P, _P, _I, _I, _I, _I, _P], _I),
     "probe_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -67,7 +74,8 @@ def _variant(a, b, acc_dtype, quantize: bool) -> int:
 
 
 def _check(a, b, acc_dtype, quantize):
-    """Raise on anything the kernel does not take; returns the variant."""
+    """Raise on anything the kernel does not take, on every device; returns
+    the variant."""
     v = _variant(a, b, acc_dtype, quantize)
     if a.dim() != 3 or b.dim() != 3 or b.shape[2] != LANES:
         raise ValueError("probe_dot: a must be (GRID, UVP, BC), b (REPS, "
@@ -76,6 +84,20 @@ def _check(a, b, acc_dtype, quantize):
         raise ValueError("probe_dot: a and b must share UVP")
     if a.device != b.device:
         raise ValueError("probe_dot: a and b must share a device")
+    grid, uvp, bc = a.shape
+    bm = BLOCK_ROWS[v]
+    if uvp % UVP_STEP or not UVP_STEP <= uvp <= MAX_UVP:
+        raise ValueError(f"probe_dot: the kernel needs UVP % {UVP_STEP} == 0 "
+                         f"and UVP <= {MAX_UVP}, got UVP={uvp}")
+    if bc % bm or bc == 0:
+        raise ValueError(f"probe_dot: the kernel needs BC % {bm} == 0, got "
+                         f"BC={bc}")
+    if not 1 <= grid <= MAX_GRID or b.shape[0] < 1:
+        raise ValueError(f"probe_dot: the kernel needs 1 <= GRID <= "
+                         f"{MAX_GRID} and REPS >= 1, got GRID={grid} "
+                         f"REPS={b.shape[0]}")
+    if not (a.is_contiguous() and b.is_contiguous()):
+        raise ValueError("probe_dot: a and b must be contiguous")
     return v
 
 
@@ -93,43 +115,61 @@ def probe_dot_plain(a, b, acc_dtype, quantize: bool = False):
 
 
 def probe_dot(a, b, acc_dtype, quantize: bool = False):
-    """``out[g] = Σ_r a[g]ᵀ · b[r]``: the kernel on CUDA tensors (which
-    need BC % 192 == 0 and UVP % 64 == 0, contiguous), the plain version
-    on CPU tensors."""
+    """``out[g] = Σ_r a[g]ᵀ · b[r]``: the kernel on CUDA tensors, the plain
+    version on CPU tensors. Both take contiguous operands with UVP % 64 ==
+    0, 64 <= UVP <= 384 and BC % BLOCK_ROWS[variant] == 0 (192; 64 for
+    the quantised variant). One call adds one to ``probe_dot.launches``;
+    for the int8 variants it launches a small transpose of b (into scratch
+    allocated here, its K padded to whole 128-byte rows) before the dot
+    kernel, and that pre-pass is part of the call and not counted apart."""
     v = _check(a, b, acc_dtype, quantize)
     if a.device.type == "cpu":
         return probe_dot_plain(a, b, acc_dtype, quantize)
     if a.device.type != "cuda":
         raise ValueError(f"probe_dot: no kernel for {a.device}")
+    out = launch(build.load(KERNEL, _SIGNATURES), v, a, b, acc_dtype)
+    probe_dot.launches += 1
+    return out
+
+
+def launch(lib, variant, a, b, acc_dtype):
+    """One kernel call through ``lib`` (csrc/probe_dot.cu's interface) on
+    checked CUDA operands; returns out. Not counted: ``probe_dot`` counts
+    its own calls."""
     grid, uvp, bc = a.shape
-    if bc % BM or uvp % BK:
-        raise ValueError(f"probe_dot: the kernel needs BC % {BM} == 0 and "
-                         f"UVP % {BK} == 0, got BC={bc} UVP={uvp}")
-    if not (a.is_contiguous() and b.is_contiguous()):
-        raise ValueError("probe_dot: a and b must be contiguous")
+    reps = b.shape[0]
     out = torch.empty((grid, bc, LANES), dtype=acc_dtype, device=a.device)
-    lib = build.load(KERNEL, _SIGNATURES)
+    bt = (None if b.dtype == torch.bfloat16 else
+          torch.empty(reps * LANES * ((uvp + 127) // 128 * 128),
+                      dtype=torch.int8, device=a.device))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.probe_dot(v, a.data_ptr(), b.data_ptr(), out.data_ptr(),
-                           grid, uvp, bc, b.shape[0], stream)
+        rc = lib.probe_dot(variant, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+                           None if bt is None else bt.data_ptr(), grid, uvp,
+                           bc, reps, stream)
     if rc != 0:
-        msg = ("unknown variant" if rc < 0
-               else lib.probe_error_string(rc).decode())
-        raise RuntimeError(f"probe_dot kernel launch failed ({rc}): {msg}")
-    probe_dot.launches += 1
+        raise RuntimeError(f"probe_dot kernel launch failed ({rc}): "
+                           f"{lib.probe_error_string(rc).decode()}")
     return out
 
 
 probe_dot.launches = 0
 
 
-def make_inputs(name, grid, uvp, reps=REPS, bc=BC, seed=0, device="cpu"):
-    """The TPU probe's operands for variant ``name``, seeded: a uniform in
-    [0, 1) (f32, quantised in the kernel), integers in [-127, 127) (int8)
-    or normal (bf16); b int8 or normal bf16, (reps, uvp, 128)."""
+def make_inputs(name, grid, uvp, reps=REPS, bc=BC, seed=0, device="cpu",
+                pattern="random"):
+    """Operands for variant ``name``, (grid, uvp, bc) and (reps, uvp, 128).
+    ``pattern`` "random" gives the TPU probe's, seeded: a uniform in [0, 1)
+    (f32, quantised in the kernel), integers in [-127, 127) (int8) or
+    normal (bf16); b int8 or normal bf16. The others are edge cases:
+    "ramp" makes a and b modular ramps in (g, k, m) and (r, k, n), exact in
+    their type, so that every 64 x 8 block of the output differs; "extreme"
+    (int8 variants) puts a at 127 (1.0 before quantisation) and b at -127,
+    the int32 sums' extreme; "half_steps" (quantised variant) puts a on
+    (k + 0.5) / 127 for seeded k in [0, 127), where round(a · 127) ties."""
     a_dt, b_dt, _, quantize = VARIANTS[name]
     gen = torch.Generator(device=device).manual_seed(seed)
+    a_shape, b_shape = (grid, uvp, bc), (reps, uvp, LANES)
 
     def draw(shape, dt, uniform=False):
         if dt == torch.int8:
@@ -139,9 +179,27 @@ def make_inputs(name, grid, uvp, reps=REPS, bc=BC, seed=0, device="cpu"):
             return torch.rand(shape, generator=gen, device=device)
         return torch.randn(shape, generator=gen, device=device).to(dt)
 
-    a = draw((grid, uvp, bc), a_dt, uniform=quantize)
-    b = draw((reps, uvp, LANES), b_dt)
-    return a, b
+    def ramp(shape, c0, c1, c2):
+        i, j, k = (torch.arange(n, device=device) for n in shape)
+        j, k = j.view(1, -1, 1), k.view(1, 1, -1)
+        return c0 * i.view(-1, 1, 1) + c1 * j + c2 * k + j * k
+
+    if pattern == "random":
+        return draw(a_shape, a_dt, uniform=quantize), draw(b_shape, b_dt)
+    if pattern == "ramp":
+        ra, rb = ramp(a_shape, 7, 3, 5), ramp(b_shape, 5, 2, 3)
+        if a_dt == torch.bfloat16:
+            return ((ra % 17 - 8) / 8).to(a_dt), ((rb % 17 - 8) / 4).to(b_dt)
+        a = (ra % 127).float() / 127 if quantize else (ra % 255 - 127).to(a_dt)
+        return a, (rb % 253 - 126).to(b_dt)
+    if pattern == "extreme" and b_dt == torch.int8:
+        return (torch.full(a_shape, 1.0 if quantize else 127, dtype=a_dt,
+                           device=device),
+                torch.full(b_shape, -127, dtype=b_dt, device=device))
+    if pattern == "half_steps" and quantize:
+        k = torch.randint(0, 127, a_shape, generator=gen, device=device)
+        return (k.float() + 0.5) / 127, draw(b_shape, b_dt)
+    raise ValueError(f"make_inputs: no pattern {pattern!r} for {name}")
 
 
 def op_count(grid, uvp, reps=REPS, bc=BC) -> float:
