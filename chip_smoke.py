@@ -43,15 +43,16 @@ Phases, one JSON line each (a record per shape for the kernels):
   kernel_probe csrc/probe_dot.cu (tools/probe_int8.py's dot_kernel): the
                entry point ``python -m flair_tpu_torch.tools.probe_int8
                [uvp]`` in process at UVP 256 and 384 (its launches counted),
-               then each of the three variants against its plain version
-               at PROBE_CHECK_GRID grid steps, timed at the TPU constants
-               (GRID 1024, REPS 32, BC 576) beside REPS torch.bmm (bf16) /
+               then each of the three variants timed at the TPU constants
+               (GRID 1024, REPS 32, BC 576) and held against its plain
+               version there, beside REPS torch.bmm (bf16) /
                torch._int_mm (int8) calls, their layout copy timed apart,
                each with its share of the bound, and the int8 variants'
                speed-up over bf16 at each UVP; then correctness-only rows
-               (PROBE_EDGE): one K tile, rings that never fill, BC of one
-               block, REPS 1-3, ramps, int32 sums at their extreme,
-               quantised ties
+               (PROBE_EDGE, PROBE_CHECK_GRID grid steps): one K tile, rings
+               that never fill, BC of one block, REPS 1-3, ramps, int32
+               sums at their extreme, quantised ties; then the quantised
+               variant's SASS: every conversion inside its REPS loop
   slice_small  the x8 test configuration on cuda (kernel) vs cpu (plain)
   slice_small_blur  the gaussian and jpeg test configurations (goldens'
                widths, 32-channel heads) on cuda (both kernels) vs cpu;
@@ -289,8 +290,8 @@ DCN_INT8_EXTRA = ((2, 33, 65, 128, 64, 16, False, 12.0, 10.0,
 # one; kernel_dcn's int8 rows (DCN_INT8_SEPARATION) do that. The phase
 # also requires the output to differ from slice_full's.
 SLICE_INT8_PSNR_DB = 40.0
-# kernel_probe: window heights (M = 5, 10), grid steps of the check, and
-# the bf16 variant's max abs error over the largest |output|: the tensor
+# kernel_probe: window heights (M = 5, 10), grid steps of the edge rows,
+# and the bf16 variant's max abs error over the largest |output|: the tensor
 # cores sum REPS·UVP = 8 192 / 12 288 products in their own f32 order
 # against an exact float64 reference (1.4e-5 measured at 12 288)
 PROBE_UVPS = (256, 384)
@@ -1011,10 +1012,11 @@ def probe_library(a, b):
 def phase_kernel_probe(ctx):
     """K3 (csrc/probe_dot.cu): the probe's entry point in process at each
     UVP, its launches counted (the main path of this kernel); then each
-    variant against its plain version at PROBE_CHECK_GRID grid steps and
-    timed at the TPU constants beside the library's products (with its
-    share of the bound, and the int8 variants' speed-up over bf16 at each
-    UVP); then the PROBE_EDGE rows, checked only."""
+    variant timed at the TPU constants beside the library's products (with
+    its share of the bound, and the int8 variants' speed-up over bf16 at
+    each UVP) and held against its plain version at that shape; then the
+    PROBE_EDGE rows, checked only; then the quantised variant's machine
+    code (probe_quantiser_sass)."""
     dev = torch.device("cuda")
     launches = {}
     for uvp in PROBE_UVPS:
@@ -1032,20 +1034,19 @@ def phase_kernel_probe(ctx):
     for uvp in PROBE_UVPS:
         for v, (name, (_, _, acc, quant)) in enumerate(
                 probe_int8.VARIANTS.items()):
-            a, b = probe_int8.make_inputs(name, PROBE_CHECK_GRID, uvp,
-                                          seed=20 + v, device=dev)
-            saved = probe_int8.probe_dot.launches
-            out = probe_int8.probe_dot(a, b, acc, quant)
-            ref = probe_int8.probe_dot_plain(a, b, acc, quant)
-            err = (out.double() - ref.double()).abs().max().item()
-            rel = err / ref.double().abs().max().item()
             a, b = probe_int8.make_inputs(name, probe_int8.GRID, uvp,
                                           seed=v, device=dev)
+            saved = probe_int8.probe_dot.launches
             ms = cuda_ms(lambda: probe_int8.probe_dot(a, b, acc, quant),
                          reps=5)
+            out = probe_int8.probe_dot(a, b, acc, quant)
             probe_int8.probe_dot.launches = saved
             plain_ms = cuda_ms(lambda: probe_int8.probe_dot_plain(
                 a, b, acc, quant), reps=1, warmup=1, batches=1)
+            ref = probe_int8.probe_dot_plain(a, b, acc, quant)
+            err = (out.double() - ref.double()).abs().max().item()
+            rel = err / ref.double().abs().max().item()
+            del out, ref
             gemms, copies, lib_names = probe_library(a, b)
             lib_ms = cuda_ms(gemms, reps=1, warmup=1, batches=3)
             copy_ms = (cuda_ms(copies, reps=3, warmup=1, batches=3)
@@ -1071,7 +1072,7 @@ def phase_kernel_probe(ctx):
                    "tops": ops / ms / 1e9, "card": ctx["smi"]}
             emit(row)
             rows.append(row)
-            del a, b, out, ref
+            del a, b
             torch.cuda.empty_cache()
             if not rel <= tol:
                 raise AssertionError(f"probe kernel disagrees: {row}")
@@ -1105,6 +1106,55 @@ def phase_kernel_probe(ctx):
         if not rel <= tol:
             raise AssertionError(f"probe kernel disagrees: {row}")
     ctx["probe_rows"] = rows
+    sass = probe_quantiser_sass()
+    emit({"phase": "kernel_probe", "quantiser_sass": sass})
+    if not sass["conversions"] or sass["outside_loops"]:
+        raise AssertionError(f"the quantised variant's conversions are not "
+                             f"all inside its REPS loop: {sass}")
+
+
+def probe_quantiser_sass() -> dict:
+    """Where the quantised variant's a-to-int8 conversions sit in its
+    machine code (cuobjdump's SASS of probe_dot_wgmma<2>): F2I instructions
+    inside the span of a backward branch (a loop; the quantisers' only one
+    is the REPS loop) and outside every one. Variant 2 must round a's slice
+    again every rep, as the TPU kernel does, so none may sit outside."""
+    tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
+    lib = build.library_path(probe_int8.KERNEL)
+    r = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
+                       timeout=300)
+    if r.returncode != 0:
+        raise RuntimeError(f"cuobjdump failed: {r.stderr.strip()}")
+    funcs = [f for f in r.stdout.split("Function : ")[1:]
+             if "probe_dot_wgmmaILi2E" in f.split("\n", 1)[0]]
+    if len(funcs) != 1:
+        raise RuntimeError(f"cuobjdump: {len(funcs)} quantised kernels")
+    labels, waiting, code, branches = {}, [], [], []
+    for ln in funcs[0].splitlines():
+        m = re.match(r"\s*(\.L_x_\d+):", ln)
+        if m:   # a label names the next instruction's address
+            waiting.append(m.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?)\s*;", ln)
+        if not m:
+            continue
+        addr, ins = int(m.group(1), 16), m.group(2)
+        labels.update((k, addr) for k in waiting)
+        waiting = []
+        code.append((addr, ins))
+        m = re.search(r"\bBRA\b\S*\s+(?:`?\(?(\.L_x_\d+)|0x([0-9a-f]+))", ins)
+        if m:
+            branches.append((addr, m.group(1), m.group(2)))
+    loops = []
+    for addr, label, hexa in branches:
+        target = labels.get(label) if label else int(hexa, 16)
+        if target is not None and target <= addr:
+            loops.append((target, addr))
+    conv = [addr for addr, ins in code
+            if re.match(r"(@!?U?P\w+\s+)?F2I", ins)]
+    outside = [a for a in conv if not any(t <= a <= e for t, e in loops)]
+    return {"conversions": len(conv), "outside_loops": len(outside),
+            "loops": len(loops), "instructions": len(code)}
 
 
 def psnr(a, b):

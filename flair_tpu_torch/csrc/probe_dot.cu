@@ -232,10 +232,13 @@ __device__ __forceinline__ void wgmma_s8(int* d, uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1));
 }
 
-// round(v * 127) to s8, half to even, saturating (cvt.rni.sat.s8.f32)
+// round(v * 127) to s8, half to even, saturating (cvt.rni.sat.s8.f32).
+// volatile: the quantisers' v do not change across the REPS loop, so a
+// plain asm could be hoisted out of it; each rep must convert again
+// (chip_smoke.py's kernel_probe checks the machine code for it)
 __device__ __forceinline__ uint32_t quant_s8(float v) {
   uint32_t q;
-  asm("cvt.rni.sat.s8.f32 %0, %1;" : "=r"(q) : "f"(v * 127.0f));
+  asm volatile("cvt.rni.sat.s8.f32 %0, %1;" : "=r"(q) : "f"(v * 127.0f));
   return q;
 }
 

@@ -127,15 +127,7 @@ def probe_dot(a, b, acc_dtype, quantize: bool = False):
         return probe_dot_plain(a, b, acc_dtype, quantize)
     if a.device.type != "cuda":
         raise ValueError(f"probe_dot: no kernel for {a.device}")
-    out = launch(build.load(KERNEL, _SIGNATURES), v, a, b, acc_dtype)
-    probe_dot.launches += 1
-    return out
-
-
-def launch(lib, variant, a, b, acc_dtype):
-    """One kernel call through ``lib`` (csrc/probe_dot.cu's interface) on
-    checked CUDA operands; returns out. Not counted: ``probe_dot`` counts
-    its own calls."""
+    lib = build.load(KERNEL, _SIGNATURES)
     grid, uvp, bc = a.shape
     reps = b.shape[0]
     out = torch.empty((grid, bc, LANES), dtype=acc_dtype, device=a.device)
@@ -144,12 +136,13 @@ def launch(lib, variant, a, b, acc_dtype):
                       dtype=torch.int8, device=a.device))
     with torch.cuda.device(a.device):
         stream = torch.cuda.current_stream(a.device).cuda_stream
-        rc = lib.probe_dot(variant, a.data_ptr(), b.data_ptr(), out.data_ptr(),
+        rc = lib.probe_dot(v, a.data_ptr(), b.data_ptr(), out.data_ptr(),
                            None if bt is None else bt.data_ptr(), grid, uvp,
                            bc, reps, stream)
     if rc != 0:
         raise RuntimeError(f"probe_dot kernel launch failed ({rc}): "
                            f"{lib.probe_error_string(rc).decode()}")
+    probe_dot.launches += 1
     return out
 
 
