@@ -52,7 +52,7 @@ Phases, one JSON line each (a record per shape for the kernels):
                (PROBE_EDGE, PROBE_CHECK_GRID grid steps): one K tile, rings
                that never fill, BC of one block, REPS 1-3, ramps, int32
                sums at their extreme, quantised ties; then the quantised
-               variant's SASS: every conversion inside its REPS loop
+               variant's SASS: every rounding inside its REPS loop
   slice_small  the x8 test configuration on cuda (kernel) vs cpu (plain)
   slice_small_blur  the gaussian and jpeg test configurations (goldens'
                widths, 32-channel heads) on cuda (both kernels) vs cpu;
@@ -1108,17 +1108,18 @@ def phase_kernel_probe(ctx):
     ctx["probe_rows"] = rows
     sass = probe_quantiser_sass()
     emit({"phase": "kernel_probe", "quantiser_sass": sass})
-    if not sass["conversions"] or sass["outside_loops"]:
-        raise AssertionError(f"the quantised variant's conversions are not "
+    if not sass["roundings"] or sass["outside_loops"]:
+        raise AssertionError(f"the quantised variant's roundings are not "
                              f"all inside its REPS loop: {sass}")
 
 
 def probe_quantiser_sass() -> dict:
-    """Where the quantised variant's a-to-int8 conversions sit in its
-    machine code (cuobjdump's SASS of probe_dot_wgmma<2>): F2I instructions
-    inside the span of a backward branch (a loop; the quantisers' only one
-    is the REPS loop) and outside every one. Variant 2 must round a's slice
-    again every rep, as the TPU kernel does, so none may sit outside."""
+    """Where the quantised variant's roundings of a to int8 sit in its
+    machine code (cuobjdump's SASS of probe_dot_wgmma<2>): the FADDs of
+    1.5 * 2^23 (quant_s8) inside the span of a backward branch (a loop; the
+    quantisers' only one is the REPS loop) and outside every one. Variant
+    2 must round a's slice again every rep, as the TPU kernel does, so none
+    may sit outside."""
     tool = os.path.join(os.path.dirname(build._nvcc()), "cuobjdump")
     lib = build.library_path(probe_int8.KERNEL)
     r = subprocess.run([tool, "-sass", lib], capture_output=True, text=True,
@@ -1129,31 +1130,17 @@ def probe_quantiser_sass() -> dict:
              if "probe_dot_wgmmaILi2E" in f.split("\n", 1)[0]]
     if len(funcs) != 1:
         raise RuntimeError(f"cuobjdump: {len(funcs)} quantised kernels")
-    labels, waiting, code, branches = {}, [], [], []
-    for ln in funcs[0].splitlines():
-        m = re.match(r"\s*(\.L_x_\d+):", ln)
-        if m:   # a label names the next instruction's address
-            waiting.append(m.group(1))
-            continue
-        m = re.match(r"\s*/\*([0-9a-f]+)\*/\s+(.*?)\s*;", ln)
-        if not m:
-            continue
-        addr, ins = int(m.group(1), 16), m.group(2)
-        labels.update((k, addr) for k in waiting)
-        waiting = []
-        code.append((addr, ins))
-        m = re.search(r"\bBRA\b\S*\s+(?:`?\(?(\.L_x_\d+)|0x([0-9a-f]+))", ins)
-        if m:
-            branches.append((addr, m.group(1), m.group(2)))
-    loops = []
-    for addr, label, hexa in branches:
-        target = labels.get(label) if label else int(hexa, 16)
-        if target is not None and target <= addr:
-            loops.append((target, addr))
+    code = [(int(m.group(1), 16), m.group(2)) for m in re.finditer(
+        r"/\*([0-9a-f]+)\*/\s+([^;]*);", funcs[0])]
+    loops = []   # (target, branch) of each backward branch
+    for addr, ins in code:
+        m = re.search(r"\bBRA\S*\s+0x([0-9a-f]+)", ins)
+        if m and int(m.group(1), 16) <= addr:
+            loops.append((int(m.group(1), 16), addr))
     conv = [addr for addr, ins in code
-            if re.match(r"(@!?U?P\w+\s+)?F2I", ins)]
+            if re.match(r"(@!?P\w+\s+)?FADD\S*\s.*\b12582912\b", ins)]
     outside = [a for a in conv if not any(t <= a <= e for t, e in loops)]
-    return {"conversions": len(conv), "outside_loops": len(outside),
+    return {"roundings": len(conv), "outside_loops": len(outside),
             "loops": len(loops), "instructions": len(code)}
 
 

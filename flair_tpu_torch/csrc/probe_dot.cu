@@ -10,8 +10,8 @@
 // in three variants, as the TPU probe runs them:
 //   0  bf16 x bf16 -> f32    wgmma m64n128k16 .f32.bf16.bf16
 //   1  s8 x s8 -> s32        wgmma m64n128k32 .s32.s8.s8
-//   2  f32 a, quantised every rep (cvt.rni.sat.s8.f32 of a * 127, round
-//      half to even as jnp.round) x s8 b -> s32, the s8 wgmma
+//   2  f32 a, quantised every rep (a * 127 rounded half to even as
+//      jnp.round, by adding 1.5 * 2^23) x s8 b -> s32, the s8 wgmma
 // Every one of the REPS x UVP products is issued: nothing is summed over r
 // first (the TPU probe's note :83-86: work hoisted out of the REPS loop is
 // not measured), and variant 2 quantises a[g]'s slice again for every r, as
@@ -232,13 +232,21 @@ __device__ __forceinline__ void wgmma_s8(int* d, uint64_t da, uint64_t db) {
       : "l"(da), "l"(db), "r"(1));
 }
 
-// round(v * 127) to s8, half to even, saturating (cvt.rni.sat.s8.f32).
-// volatile: the quantisers' v do not change across the REPS loop, so a
-// plain asm could be hoisted out of it; each rep must convert again
-// (chip_smoke.py's kernel_probe checks the machine code for it)
+// round(v * 127) to s8, half to even, in the low byte of the result:
+// v * 127 (mul.rn, as the plain version rounds it) plus 1.5 * 2^23
+// (add.rn) leaves the rounded integer in the float's low mantissa bits,
+// exact for |v * 127| < 2^22; a in [0, 1] needs no saturation. Two FP32
+// operations instead of cvt.rni.sat.s8.f32, 1.4x slower on the H100
+// (PERF.md). volatile: v does not change across the REPS loop, so plain
+// arithmetic would be hoisted out of it; each rep must round again
+// (chip_smoke.py's kernel_probe checks the machine code for it).
 __device__ __forceinline__ uint32_t quant_s8(float v) {
   uint32_t q;
-  asm volatile("cvt.rni.sat.s8.f32 %0, %1;" : "=r"(q) : "f"(v * 127.0f));
+  asm volatile(
+      "{\n\t.reg .f32 t;\n\tmul.rn.f32 t, %1, 0f42FE0000;\n\t"  // 127
+      "add.rn.f32 t, t, 0f4B400000;\n\tmov.b32 %0, t;\n\t}"       // 1.5 * 2^23
+      : "=r"(q)
+      : "f"(v));
   return q;
 }
 
