@@ -1,0 +1,38 @@
+"""Small configurations of the two cells for the CPU tests: the goldens'
+x8 and gaussian model sizes at 64² output, four ddim steps, float32 (the
+program's plain path on the CPU), and the cells' own limits."""
+
+import json
+import os
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+CONFIGS = os.path.join(os.path.dirname(HERE), "configs")
+
+
+def cell_limits(name):
+    with open(os.path.join(CONFIGS, name + ".json")) as f:
+        return json.load(f)["limits"]
+
+
+X8 = {"task": "x8_bicubic", "input_size": 8, "output_size": 64,
+      "steps": "ddim4", "dtype": "float32", "model": "bicubic_unet",
+      "wrapper": "wrap_bicubic_model", "reference": "sr3.BicubicUNet",
+      "model_kwargs": dict(inner_channel=32, norm_groups=16,
+                           channel_mults=[1, 2], attn_res=[32],
+                           vsrpp_res=[64], image_size=64, res_blocks=1,
+                           num_frames=3, head_dim=8),
+      "limits": cell_limits("flair_bicubic_unet")}
+BLUR = {"task": "gaussian", "input_size": 16, "output_size": 64,
+        "steps": "ddim4", "dtype": "float32", "model": "blur_unet",
+        "wrapper": "wrap_blur_model", "reference": "adm.BlurUNet",
+        "model_kwargs": dict(image_size=64, in_channels=6, model_channels=32,
+                             out_channels=6, num_res_blocks=1,
+                             attention_resolutions=[2], rnn_resolutions=[1],
+                             channel_mult=[1, 2], num_heads=1,
+                             num_head_channels=8, use_scale_shift_norm=True,
+                             temporal_frames=5),
+        "limits": cell_limits("flair_blur_unet")}
+# two windows and a tail: window 4, overlap 2
+TRAFFIC = {"clips": 1, "frames": 12, "shift": 1.0, "window": 4,
+           "overlap": 2, "warmup_calls": 2}
+SEED = 2 ** 31 + 12345
