@@ -26,6 +26,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils.spans import span
 from .gaussian import Diffusion, extract, p_mean_variance, predict_eps_from_xstart
 
 
@@ -198,6 +199,7 @@ def guided_sample_steps(d: Diffusion, model_fn, noise, cfg: GuidanceConfig,
     for t in indices.tolist():
         z = draw_noise(x.shape, x, generator, noise_fn)
         model_out = model_fn(x, t)
-        x = update(x, model_out, t, z, pin_mask, pin_values, restore_args,
-                   face_args)
+        with span("update"):
+            x = update(x, model_out, t, z, pin_mask, pin_values,
+                       restore_args, face_args)
     return x

@@ -14,6 +14,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import dot_product_attention, flash_attention
+from ..utils.spans import span
 from .common import Conv2d, Conv3d, Dense, GroupNorm32, nchw, nhwc, silu
 
 
@@ -58,23 +59,24 @@ class ResBlock(nn.Module):
         return conv(x, b) if self.dims == 3 else conv(x)
 
     def forward(self, x, emb, b: int):
-        h = silu(self.in_norm(x, b))
-        if self.up:
-            h = F.interpolate(h, scale_factor=2, mode="nearest")
-            x = F.interpolate(x, scale_factor=2, mode="nearest")
-        elif self.down:
-            h = F.avg_pool2d(h, 2)
-            x = F.avg_pool2d(x, 2)
-        h = self._conv(self.in_conv, h, b)
-        emb_out = self.emb_proj(silu(emb))[:, :, None, None]  # (N, C', 1, 1)
-        if self.use_scale_shift_norm:
-            scale, shift = emb_out.chunk(2, dim=1)
-            h = self.out_norm(h, b) * (1 + scale) + shift
-        else:
-            h = self.out_norm(h + emb_out.to(h.dtype), b)
-        h = self._conv(self.out_conv, silu(h), b)
-        skip = x if self.skip is None else self.skip(x)
-        return skip + h
+        with span("temporal" if self.dims == 3 else "resnet"):
+            h = silu(self.in_norm(x, b))
+            if self.up:
+                h = F.interpolate(h, scale_factor=2, mode="nearest")
+                x = F.interpolate(x, scale_factor=2, mode="nearest")
+            elif self.down:
+                h = F.avg_pool2d(h, 2)
+                x = F.avg_pool2d(x, 2)
+            h = self._conv(self.in_conv, h, b)
+            emb_out = self.emb_proj(silu(emb))[:, :, None, None]  # N, C', 1, 1
+            if self.use_scale_shift_norm:
+                scale, shift = emb_out.chunk(2, dim=1)
+                h = self.out_norm(h, b) * (1 + scale) + shift
+            else:
+                h = self.out_norm(h + emb_out.to(h.dtype), b)
+            h = self._conv(self.out_conv, silu(h), b)
+            skip = x if self.skip is None else self.skip(x)
+            return skip + h
 
 
 def _split_heads(qkv, heads: int):
@@ -110,9 +112,10 @@ class AttentionBlock(nn.Module):
         return flash_attention(q, k, v).reshape(n, h * w, c)
 
     def forward(self, x, b: int):
-        n, c, h, w = x.shape
-        out = self.proj(self.attend(x, b))
-        return x + nchw(out.reshape(n, h, w, c))
+        with span("attention"):
+            n, c, h, w = x.shape
+            out = self.proj(self.attend(x, b))
+            return x + nchw(out.reshape(n, h, w, c))
 
 
 class AttentionBottleBlock(AttentionBlock):
@@ -126,11 +129,12 @@ class AttentionBottleBlock(AttentionBlock):
         self.emb_proj = Dense(emb_dim, channels, dtype=dtype)
 
     def forward(self, x, emb, b: int):
-        n, c, h, w = x.shape
-        out = self.attend(x, b)
-        out = out + self.emb_proj(silu(emb))[:, None, :].to(out.dtype)
-        out = self.proj(out)
-        return x + nchw(out.reshape(n, h, w, c))
+        with span("attention"):
+            n, c, h, w = x.shape
+            out = self.attend(x, b)
+            out = out + self.emb_proj(silu(emb))[:, None, :].to(out.dtype)
+            out = self.proj(out)
+            return x + nchw(out.reshape(n, h, w, c))
 
 
 class SR3Block(nn.Module):
@@ -160,12 +164,13 @@ class SR3ResnetBlock(nn.Module):
                          if in_ch != out_ch else None)
 
     def forward(self, x, emb, b: int):
-        h = self.block1(x, b)
-        h = h + self.noise_proj(emb)[:, :, None, None].to(h.dtype)
-        h = self.block2(h, b)
-        if self.res_conv is not None:
-            x = self.res_conv(x)
-        return h + x
+        with span("resnet"):
+            h = self.block1(x, b)
+            h = h + self.noise_proj(emb)[:, :, None, None].to(h.dtype)
+            h = self.block2(h, b)
+            if self.res_conv is not None:
+                x = self.res_conv(x)
+            return h + x
 
 
 class SR3SelfAttention(nn.Module):
@@ -181,11 +186,12 @@ class SR3SelfAttention(nn.Module):
         self.out = Dense(channels, channels, dtype=dtype)
 
     def forward(self, x, b: int):
-        n, c, h, w = x.shape
-        nh = self.n_head
-        t = nhwc(self.norm(x, b)).reshape(n, h * w, c)
-        qkv = self.qkv(t).reshape(n, h * w, nh, 3, c // nh)
-        q, k, v = qkv.unbind(dim=3)
-        out = dot_product_attention(q, k, v, scale=1.0 / math.sqrt(c))
-        out = self.out(out.reshape(n, h * w, c))
-        return x + nchw(out.reshape(n, h, w, c))
+        with span("attention"):
+            n, c, h, w = x.shape
+            nh = self.n_head
+            t = nhwc(self.norm(x, b)).reshape(n, h * w, c)
+            qkv = self.qkv(t).reshape(n, h * w, nh, 3, c // nh)
+            q, k, v = qkv.unbind(dim=3)
+            out = dot_product_attention(q, k, v, scale=1.0 / math.sqrt(c))
+            out = self.out(out.reshape(n, h * w, c))
+            return x + nchw(out.reshape(n, h, w, c))

@@ -11,6 +11,8 @@ from __future__ import annotations
 
 from typing import Any, Callable, Dict
 
+from ..utils.spans import span
+
 _REGISTRY: Dict[str, Callable[..., Any]] = {}
 
 
@@ -29,7 +31,8 @@ def get_model(name: str, **kwargs):
         _register_all()
     if name not in _REGISTRY:
         raise KeyError(f"unknown model: {name}; have {sorted(_REGISTRY)}")
-    return _REGISTRY[name](**kwargs)
+    with span("model.build"):
+        return _REGISTRY[name](**kwargs)
 
 
 def list_models():

@@ -18,6 +18,7 @@ import torch.nn as nn
 
 from ..ops.attention import temporal_window_attention
 from ..parallel.halo import halo_exchange_frames
+from ..utils.spans import span
 from .common import Conv2d, Dense, GroupNorm32, ShiftWindowGroupNorm, nchw, nhwc, silu
 
 
@@ -69,24 +70,25 @@ class TemporalAttention(nn.Module):
             persistent=False)
 
     def forward(self, x, b: int):
-        n, c, hh, ww = x.shape
-        dt = self.dtype
-        p = self.num_frames // 2
-        h = x if self.norm is None else self.norm(x, b)
-        if self.frame_group is not None:
-            h = halo_exchange_frames(h, p, self.frame_group, b=b)
-        hv = nhwc(h)                                    # (N', H, W, C)
-        q = self.q_linear(hv + self.t_mid.to(dt))
-        k = self.k_linear(hv)
-        v = self.v_linear(hv)
-        zero = torch.zeros((1, c), dtype=dt, device=x.device)
-        k_pos = self.k_linear(self.t_rest.to(dt)) - self.k_linear(zero)
-        five = lambda a: a.reshape(b, -1, hh, ww, c)  # noqa: E731
-        out = temporal_window_attention(five(q), five(k), five(v), k_pos,
-                                        self.num_frames, self.heads)
-        if self.frame_group is not None and p:
-            out = out[:, p:-p]
-        return x + self.proj(nchw(out.reshape(n, hh, ww, c)))
+        with span("temporal"):
+            n, c, hh, ww = x.shape
+            dt = self.dtype
+            p = self.num_frames // 2
+            h = x if self.norm is None else self.norm(x, b)
+            if self.frame_group is not None:
+                h = halo_exchange_frames(h, p, self.frame_group, b=b)
+            hv = nhwc(h)                                    # (N', H, W, C)
+            q = self.q_linear(hv + self.t_mid.to(dt))
+            k = self.k_linear(hv)
+            v = self.v_linear(hv)
+            zero = torch.zeros((1, c), dtype=dt, device=x.device)
+            k_pos = self.k_linear(self.t_rest.to(dt)) - self.k_linear(zero)
+            five = lambda a: a.reshape(b, -1, hh, ww, c)  # noqa: E731
+            out = temporal_window_attention(five(q), five(k), five(v), k_pos,
+                                            self.num_frames, self.heads)
+            if self.frame_group is not None and p:
+                out = out[:, p:-p]
+            return x + self.proj(nchw(out.reshape(n, hh, ww, c)))
 
 
 class TemporalWrapper2(nn.Module):
@@ -98,6 +100,7 @@ class TemporalWrapper2(nn.Module):
         self.gate = Dense(emb_dim, features, zero_init=True, dtype=dtype)
 
     def forward(self, x, out, emb):
-        w = self.gate(silu(emb))[:, :, None, None]      # (N, C, 1, 1)
-        s = torch.sigmoid(w.float()).to(x.dtype)
-        return (1 - s) * x + s * out
+        with span("temporal"):
+            w = self.gate(silu(emb))[:, :, None, None]      # (N, C, 1, 1)
+            s = torch.sigmoid(w.float()).to(x.dtype)
+            return (1 - s) * x + s * out

@@ -32,6 +32,7 @@ from ..ops.dcn import deform_conv2d_raw
 from ..ops.resize import resize_matrix
 from ..ops.warp import flow_warp
 from ..parallel.collectives import all_gather_frames
+from ..utils.spans import span
 from .common import Conv2d, _lecun_, channels_last, leaky_relu, nchw, nhwc
 from .registry import register_model
 
@@ -283,51 +284,52 @@ class BasicVSRPP(nn.Module):
 
     def forward(self, hidden, b: int, flows_forward, flows_backward,
                 weight=None, flows_forward2=None, flows_backward2=None):
-        group, local = self.frame_group, hidden
-        if group is not None:
-            hidden = _gather_nchw(hidden, b, group)
-            if weight is not None:
-                weight = all_gather_frames(weight, group, 1)
-        n, c, h, w = hidden.shape
-        t = n // b
-        if weight is None:
-            weight = torch.ones((b, t, 1, 1, 1), dtype=hidden.dtype,
+        with span("vsrpp"):
+            group, local = self.frame_group, hidden
+            if group is not None:
+                hidden = _gather_nchw(hidden, b, group)
+                if weight is not None:
+                    weight = all_gather_frames(weight, group, 1)
+            n, c, h, w = hidden.shape
+            t = n // b
+            if weight is None:
+                weight = torch.ones((b, t, 1, 1, 1), dtype=hidden.dtype,
+                                    device=hidden.device)
+            else:
+                if weight.dim() == 5 and weight.shape[2] not in (1, h):
+                    weight = resize_weight_map(weight, h, w)
+                # the gating multiply runs in the trunk dtype (unet.py:489)
+                weight = weight.to(hidden.dtype)
+            if flows_forward2 is None or flows_backward2 is None:
+                flows_forward2, flows_backward2 = compose_second_order_flows(
+                    flows_forward, flows_backward)
+            zeros = torch.zeros((b, 1, 2, h, w), dtype=flows_forward.dtype,
                                 device=hidden.device)
-        else:
-            if weight.dim() == 5 and weight.shape[2] not in (1, h):
-                weight = resize_weight_map(weight, h, w)
-            # the gating multiply runs in the trunk dtype (unet.py:489)
-            weight = weight.to(hidden.dtype)
-        if flows_forward2 is None or flows_backward2 is None:
-            flows_forward2, flows_backward2 = compose_second_order_flows(
-                flows_forward, flows_backward)
-        zeros = torch.zeros((b, 1, 2, h, w), dtype=flows_forward.dtype,
-                            device=hidden.device)
-        cfg = dict(deform_groups=self.deform_groups,
-                   max_residue_magnitude=self.max_residue_magnitude,
-                   dtype=self.dtype)
-        # backward branch: frames T-1 → 0; first-order flow at frame j is
-        # flows_backward[:, j] (none at the last frame)
-        bwd = _run_branch(self.backward_1, hidden, None,
-                          torch.cat([flows_backward, zeros], 1),
-                          flows_backward2, weight, range(t - 1, -1, -1), b,
-                          **cfg)
-        # forward branch: frames 0 → T-1; flow at frame j is
-        # flows_forward[:, j-1] (none at frame 0)
-        fwd = _run_branch(self.forward_1, hidden, bwd,
-                          torch.cat([zeros, flows_forward], 1),
-                          flows_forward2, weight, range(t), b, **cfg)
-        if group is not None:
-            tl = local.shape[0] // b
-            lo = dist.get_rank(group) * tl
+            cfg = dict(deform_groups=self.deform_groups,
+                       max_residue_magnitude=self.max_residue_magnitude,
+                       dtype=self.dtype)
+            # backward branch: frames T-1 → 0; first-order flow at frame j is
+            # flows_backward[:, j] (none at the last frame)
+            bwd = _run_branch(self.backward_1, hidden, None,
+                              torch.cat([flows_backward, zeros], 1),
+                              flows_backward2, weight, range(t - 1, -1, -1), b,
+                              **cfg)
+            # forward branch: frames 0 → T-1; flow at frame j is
+            # flows_forward[:, j-1] (none at frame 0)
+            fwd = _run_branch(self.forward_1, hidden, bwd,
+                              torch.cat([zeros, flows_forward], 1),
+                              flows_forward2, weight, range(t), b, **cfg)
+            if group is not None:
+                tl = local.shape[0] // b
+                lo = dist.get_rank(group) * tl
 
-            def mine(v):
-                v = v.reshape(b, t, c, h, w)[:, lo:lo + tl]
-                return channels_last(v.reshape(b * tl, c, h, w))
+                def mine(v):
+                    v = v.reshape(b, t, c, h, w)[:, lo:lo + tl]
+                    return channels_last(v.reshape(b * tl, c, h, w))
 
-            hidden, bwd, fwd = local, mine(bwd), mine(fwd)
-        hr = self.reconstruction(torch.cat([hidden, bwd, fwd], dim=1))
-        return hidden + self.conv_last(hr)
+                hidden, bwd, fwd = local, mine(bwd), mine(fwd)
+            hr = self.reconstruction(torch.cat([hidden, bwd, fwd], dim=1))
+            return hidden + self.conv_last(hr)
 
 
 def _gather_nchw(x, b: int, group):

@@ -40,6 +40,7 @@ from ..operators.factory import BLUR_TASKS, get_operator, make_restore_fn_p
 from ..ops.resize import resize_area, resize_bicubic
 from ..parallel import all_gather_frames, axis_size, set_frame_group
 from ..utils.device import resolve_device
+from ..utils.spans import span
 
 FRAME_SLICE_LEN = 10
 OVERLAP = 3
@@ -221,91 +222,102 @@ def restore_video(
     if face_fn is None and codeformer_apply is not None:
         face_fn_p = make_face_fn_p(codeformer_apply, parsenet_apply,
                                    face_size=cfg.output_size)
+
+    def prepare(start, length, prev_recon):
+        """A window's frames, conditioning, start x_T, pins, flows and
+        guided update: (x_t, model_fn, frame group, the sampler's
+        keywords)."""
+        sl = frames[:, start:start + length]
+        if pad_tail and length < win:
+            sl = torch.cat([sl, sl[:, -1:].expand(
+                nclips, win - length, *sl.shape[2:])], dim=1)
+        tw = sl.shape[1]
+        # this rank's frames of the window and the group they are cut
+        # over (unsharded: all of them, no group)
+        mine, group = slice(None), None
+        if mesh is not None and tw % n_frame == 0:
+            tl = tw // n_frame
+            lo = mesh.get_local_rank(frame_axis) * tl
+            mine, group = slice(lo, lo + tl), frame_group
+        if model is not None:
+            set_frame_group(model, group)
+        init = init_from_degraded(sl, cfg)
+        low_res = init[:, mine]
+        rnn_input = rnn_input_for(sl, init, cfg)
+        degraded_pm1 = (sl[:, mine] * 2.0 - 1.0).reshape(
+            -1, *sl.shape[2:])
+
+        def window_noise(shape, like=init):
+            """The whole window's draw, cut to this rank's frames."""
+            return draw_noise(like.shape, like, generator,
+                              noise_fn)[:, mine]
+
+        t_init = d.num_timesteps - 1 if cfg.t_start == -1 else cfg.t_start
+        x_t = q_sample(d, low_res, t_init, window_noise(None))
+        pin_mask = pin_values = None
+        if prev_recon is not None:
+            pin_mask = torch.zeros((1, tw, 1, 1, 1), dtype=torch.bool,
+                                   device=dev)
+            pin_mask[:, :overlap] = True
+            pin_values = torch.zeros_like(init)
+            pin_values[:, :overlap] = prev_recon
+            pin_mask, pin_values = pin_mask[:, mine], pin_values[:, mine]
+        flows = None if flows_fn is None else flows_fn(rnn_input)
+        # x8/x16: down-weight VSR++ propagation on the parsed background
+        # (video_sample.py:427-444)
+        vsrpp_weights = None
+        if cfg.vsrpp_bg_weight > 0 and parsenet_apply is not None:
+            logits = parsenet_apply(
+                init.reshape(nclips * tw, *init.shape[2:]))
+            bg = (torch.argmax(logits, dim=-1) == 0).float()[..., None]
+            vsrpp_weights = (bg * cfg.vsrpp_bg_weight + (1.0 - bg)
+                             ).reshape(nclips, tw, *bg.shape[1:])[:, mine]
+        # face matrices once per window on the init frames
+        # (video_sample.py:446-448); whether the window runs the face
+        # prior is decided on the whole window, so every rank agrees
+        face_args = () if face_fn is not None else None
+        if (face_fn is None and face_helper is not None
+                and codeformer_apply is not None):
+            mats = [_fill_missing_matrices(face_helper.get_affine_matrices(
+                        ((init[i] + 1.0) / 2.0).float().cpu().numpy(),
+                        only_keep_largest=True, eye_dist_threshold=0.1))
+                    for i in range(nclips)]
+            if all(m is not None for m in mats):
+                face_args = (torch.as_tensor(np.stack(mats),
+                                             device=dev)[:, mine],)
+        g = guidance or GuidanceConfig(
+            w=cfg.w, rho=cfg.rho, noise_level=cfg.noise_level,
+            zeta=cfg.zeta, tau=cfg.tau, t_start=cfg.t_start,
+            use_aux=face_args is not None)
+        update = make_guided_update(
+            d, g, restore_fn=restore_fn_p, face_fn=face_fn_p,
+            rule="ddim" if sampler == "ddim" else "ddpm", eta=eta)
+
+        def model_fn(x, t):
+            return model_apply(x, t, low_res, rnn_input, vsrpp_weights,
+                               flows)
+
+        return x_t, model_fn, group, dict(
+            cfg=g, update=update, pin_mask=pin_mask, pin_values=pin_values,
+            restore_args=(degraded_pm1,), face_args=face_args,
+            noise_fn=window_noise)
+
     outputs = [None] * t_all
     prev_recon = None  # (B, overlap, H, W, 3) tail of the previous window
     try:
         for start, length in window_slices(t_all, win, overlap):
-            sl = frames[:, start:start + length]
-            if pad_tail and length < win:
-                sl = torch.cat([sl, sl[:, -1:].expand(
-                    nclips, win - length, *sl.shape[2:])], dim=1)
-            tw = sl.shape[1]
-            # this rank's frames of the window and the group they are cut
-            # over (unsharded: all of them, no group)
-            mine, group = slice(None), None
-            if mesh is not None and tw % n_frame == 0:
-                tl = tw // n_frame
-                lo = mesh.get_local_rank(frame_axis) * tl
-                mine, group = slice(lo, lo + tl), frame_group
-            if model is not None:
-                set_frame_group(model, group)
-            init = init_from_degraded(sl, cfg)
-            low_res = init[:, mine]
-            rnn_input = rnn_input_for(sl, init, cfg)
-            degraded_pm1 = (sl[:, mine] * 2.0 - 1.0).reshape(
-                -1, *sl.shape[2:])
-
-            def window_noise(shape, like=init):
-                """The whole window's draw, cut to this rank's frames."""
-                return draw_noise(like.shape, like, generator,
-                                  noise_fn)[:, mine]
-
-            t_init = d.num_timesteps - 1 if cfg.t_start == -1 else cfg.t_start
-            x_t = q_sample(d, low_res, t_init, window_noise(None))
-            pin_mask = pin_values = None
-            if prev_recon is not None:
-                pin_mask = torch.zeros((1, tw, 1, 1, 1), dtype=torch.bool,
-                                       device=dev)
-                pin_mask[:, :overlap] = True
-                pin_values = torch.zeros_like(init)
-                pin_values[:, :overlap] = prev_recon
-                pin_mask, pin_values = pin_mask[:, mine], pin_values[:, mine]
-            flows = None if flows_fn is None else flows_fn(rnn_input)
-            # x8/x16: down-weight VSR++ propagation on the parsed background
-            # (video_sample.py:427-444)
-            vsrpp_weights = None
-            if cfg.vsrpp_bg_weight > 0 and parsenet_apply is not None:
-                logits = parsenet_apply(
-                    init.reshape(nclips * tw, *init.shape[2:]))
-                bg = (torch.argmax(logits, dim=-1) == 0).float()[..., None]
-                vsrpp_weights = (bg * cfg.vsrpp_bg_weight + (1.0 - bg)
-                                 ).reshape(nclips, tw, *bg.shape[1:])[:, mine]
-            # face matrices once per window on the init frames
-            # (video_sample.py:446-448); whether the window runs the face
-            # prior is decided on the whole window, so every rank agrees
-            face_args = () if face_fn is not None else None
-            if (face_fn is None and face_helper is not None
-                    and codeformer_apply is not None):
-                mats = [_fill_missing_matrices(face_helper.get_affine_matrices(
-                            ((init[i] + 1.0) / 2.0).float().cpu().numpy(),
-                            only_keep_largest=True, eye_dist_threshold=0.1))
-                        for i in range(nclips)]
-                if all(m is not None for m in mats):
-                    face_args = (torch.as_tensor(np.stack(mats),
-                                                 device=dev)[:, mine],)
-            g = guidance or GuidanceConfig(
-                w=cfg.w, rho=cfg.rho, noise_level=cfg.noise_level,
-                zeta=cfg.zeta, tau=cfg.tau, t_start=cfg.t_start,
-                use_aux=face_args is not None)
-            update = make_guided_update(
-                d, g, restore_fn=restore_fn_p, face_fn=face_fn_p,
-                rule="ddim" if sampler == "ddim" else "ddpm", eta=eta)
-
-            def model_fn(x, t):
-                return model_apply(x, t, low_res, rnn_input, vsrpp_weights,
-                                   flows)
-
-            sample = guided_sample_steps(
-                d, model_fn, x_t, g, update=update, pin_mask=pin_mask,
-                pin_values=pin_values, restore_args=(degraded_pm1,),
-                face_args=face_args, noise_fn=window_noise)
-            if group is not None:
-                sample = all_gather_frames(sample, group, 1)
-            keep_from = overlap if prev_recon is not None else 0
-            recon = sample.float().cpu().numpy()
-            for i in range(keep_from, length):
-                outputs[start + i] = recon[:, i]
-            prev_recon = sample[:, length - overlap:length]
+            with span("window"):
+                with span("prep"):
+                    x_t, model_fn, group, kw = prepare(start, length,
+                                                       prev_recon)
+                sample = guided_sample_steps(d, model_fn, x_t, **kw)
+                if group is not None:
+                    sample = all_gather_frames(sample, group, 1)
+                keep_from = overlap if prev_recon is not None else 0
+                recon = sample.float().cpu().numpy()
+                for i in range(keep_from, length):
+                    outputs[start + i] = recon[:, i]
+                prev_recon = sample[:, length - overlap:length]
     finally:
         if model is not None:
             set_frame_group(model, None)

@@ -20,13 +20,15 @@ import torch
 
 from ..diffusion.gaussian import (
     Diffusion, map_timesteps, scale_timesteps, sr3_noise_level)
+from ..utils.spans import span
 
 
 def _wrap(model, cond, enable_cross_frames: bool):
     def apply(x, t, low_res, rnn_input, vsrpp_weights, flows=None):
-        return model(x, cond(t, x), low_res, rnn_input=rnn_input,
-                     enable_cross_frames=enable_cross_frames,
-                     vsrpp_weights=vsrpp_weights, flows=flows)
+        with span("denoiser"):
+            return model(x, cond(t, x), low_res, rnn_input=rnn_input,
+                         enable_cross_frames=enable_cross_frames,
+                         vsrpp_weights=vsrpp_weights, flows=flows)
 
     def flows_fn(rnn_input):
         return model.compute_flows(rnn_input, enable_cross_frames)

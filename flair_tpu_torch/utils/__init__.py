@@ -1,2 +1,2 @@
 """Weight conversion, checkpoint loading and saving, configs, the training
-logger, PNG I/O, device selection, CUDA kernel builds."""
+logger, PNG I/O, device selection, CUDA kernel builds, host spans."""

@@ -16,6 +16,8 @@ import shutil
 import subprocess
 import threading
 
+from .spans import span
+
 CSRC = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
                     "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(CSRC)), "build",
@@ -67,8 +69,9 @@ def load(name: str, signatures: dict) -> ctypes.CDLL:
     declared once when the library is first loaded."""
     with _LOCK:
         if name not in _LIBS:
-            compile_source(name)
-            lib = ctypes.CDLL(library_path(name))
+            with span("kernels.load"):
+                compile_source(name)
+                lib = ctypes.CDLL(library_path(name))
             for fn, (argtypes, restype) in signatures.items():
                 getattr(lib, fn).argtypes = argtypes
                 getattr(lib, fn).restype = restype

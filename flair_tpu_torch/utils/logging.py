@@ -5,15 +5,10 @@ guided_diffusion/logger.py:26-495, OpenAI-baselines style): ``logkv`` /
 ``logkv_mean`` accumulate, ``dumpkvs`` fans out to the configured writers.
 Under ``torch.distributed`` rank 0 writes the default sinks and other ranks
 their own log file; gradients are already averaged inside the step.
-
-``profile_kv`` / ``profile`` time host wall-clock scopes (logger.py:294-315)
-and mark them as ``torch.profiler.record_function`` ranges;
-``device_trace`` writes a ``torch.profiler`` Chrome trace.
 """
 
 from __future__ import annotations
 
-import contextlib
 import csv
 import datetime
 import json
@@ -21,7 +16,6 @@ import os
 import os.path as osp
 import sys
 import tempfile
-import time
 from collections import defaultdict
 from typing import Any, Dict, Optional
 
@@ -288,45 +282,3 @@ def set_level(level):
 def get_dir():
     return get_current().get_dir()
 
-
-# ---------------------------------------------------------------------------
-# Profiling scopes (logger.py:294-315) + torch.profiler
-# ---------------------------------------------------------------------------
-
-
-@contextlib.contextmanager
-def profile_kv(scopename: str):
-    """Add the scope's host wall time to ``wait_<scopename>``; the scope is
-    a ``record_function`` range in a profiler trace."""
-    import torch
-
-    key = "wait_" + scopename
-    t0 = time.time()
-    try:
-        with torch.profiler.record_function(scopename):
-            yield
-    finally:
-        get_current().name2val[key] += time.time() - t0
-
-
-def profile(fn):
-    def wrapped(*args, **kwargs):
-        with profile_kv(fn.__name__):
-            return fn(*args, **kwargs)
-
-    return wrapped
-
-
-@contextlib.contextmanager
-def device_trace(logdir: str):
-    """Profile the block with ``torch.profiler`` (host, and the card when
-    there is one) and write ``<logdir>/trace.json`` (Chrome trace)."""
-    import torch
-
-    acts = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        acts.append(torch.profiler.ProfilerActivity.CUDA)
-    os.makedirs(logdir, exist_ok=True)
-    with torch.profiler.profile(activities=acts) as prof:
-        yield prof
-    prof.export_chrome_trace(osp.join(logdir, "trace.json"))

@@ -24,15 +24,16 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLUR_TASKS = ("gaussian", "jpeg")
 
 
-def restore_golden(gold_name, steps=None, sampler="steps"):
-    """The port's zero-noise restoration of a golden's clip from its
-    archived weights, at the golden's steps unless ``steps`` is given.
+def golden_program(gold_name, steps=None, sampler="steps"):
+    """The golden's clip, the port's wrapped denoiser built from its
+    archived weights, and ``restore_video``'s other arguments for a
+    zero-noise restoration at the golden's steps unless ``steps`` is given.
     The x8/x16 goldens hold a BicubicUNet, the gaussian/jpeg goldens a
     BlurUNet (tests/test_goldens.py builds the same models)."""
     from flair_tpu_torch.diffusion import GuidanceConfig, make_task_diffusion
     from flair_tpu_torch.models.adm import BlurUNet
     from flair_tpu_torch.models.sr3 import BicubicUNet
-    from flair_tpu_torch.pipeline.video import TASK_CONFIGS, restore_video
+    from flair_tpu_torch.pipeline.video import TASK_CONFIGS
     from flair_tpu_torch.pipeline.wrappers import (
         wrap_bicubic_model, wrap_blur_model)
     from flair_tpu_torch.utils.convert import (
@@ -67,8 +68,8 @@ def restore_golden(gold_name, steps=None, sampler="steps"):
             num_frames=meta["win"], head_dim=8)
         model.load_state_dict(from_flax_bicubic_unet(flat))
         apply = wrap_bicubic_model(d, model)
-    return restore_video(
-        np.load(os.path.join(gold, "degraded01.npy")), cfg, apply,
+    clip = np.load(os.path.join(gold, "degraded01.npy"))
+    return clip, cfg, apply, dict(
         diffusion=d,
         guidance=GuidanceConfig(use_aux=False, w=cfg.w, rho=cfg.rho,
                                 tau=cfg.tau, zeta=cfg.zeta,
@@ -76,6 +77,15 @@ def restore_golden(gold_name, steps=None, sampler="steps"):
         win=meta["win"], overlap=meta["overlap"], pad_tail=False,
         sampler=sampler, device="cpu",
         noise_fn=lambda s: np.zeros(s, np.float32))
+
+
+def restore_golden(gold_name, steps=None, sampler="steps"):
+    """The port's zero-noise restoration of a golden's clip
+    (``golden_program``)."""
+    from flair_tpu_torch.pipeline.video import restore_video
+
+    clip, cfg, apply, kwargs = golden_program(gold_name, steps, sampler)
+    return restore_video(clip, cfg, apply, **kwargs)
 
 
 @pytest.mark.parametrize("gold_name", ["x8_s64", "x16_s64", "gaussian_s64",
