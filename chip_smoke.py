@@ -53,6 +53,11 @@ Phases, one JSON line each (a record per shape for the kernels):
                that never fill, BC of one block, REPS 1-3, ramps, int32
                sums at their extreme, quantised ties; then the quantised
                variant's SASS: every rounding inside its REPS loop
+  kernel_norm  csrc/group_norm.cu (ops/norms.group_norm_act, SiLU, bf16)
+               at the main path's NORM_SHAPES against the plain version in
+               float32, timed beside the plain composition in bf16 (the
+               models' old sequence of about ten passes), with its bound
+               (3 S: x read twice, y written once, at 3.35 TB/s)
   slice_small  the x8 test configuration on cuda (kernel) vs cpu (plain)
   slice_small_blur  the gaussian and jpeg test configurations (goldens'
                widths, 32-channel heads) on cuda (both kernels) vs cpu;
@@ -62,10 +67,11 @@ Phases, one JSON line each (a record per shape for the kernels):
                CodeFormer / ParseNet at 64², fixed matrices, cuda vs cpu
   slice_small_train  one training step (``train.make_train_step``) of the
                goldens' x8 model, f32, B = 1, T = 3, 64², fixed t and noise,
-               on cuda (K1) vs cpu (plain): loss, grad_norm, every gradient,
-               the updated parameters and the EMA stream; then the same for
-               the goldens' gaussian BlurUNet with remat (32-channel heads:
-               K1 and K2, each launched twice a site)
+               on cuda (K1, the norm kernel) vs cpu (plain): loss,
+               grad_norm, every gradient, the updated parameters and the EMA
+               stream; then the same for the goldens' gaussian BlurUNet with
+               remat (32-channel heads: K1 and K2, each launched twice a
+               site); the norm kernel 3 times a GroupNorm32 call
   train_full   the x8 BicubicUNet at the registry defaults training through
                ``train.TrainRunner`` (bf16 trunk, float32 parameters, AdamW,
                one EMA stream), B = 1, T = TRAIN_T at 512²: a warm-up step,
@@ -134,13 +140,15 @@ Phases, one JSON line each (a record per shape for the kernels):
                card (cuda:0) and on one NCCL rank (NCCL takes no two ranks
                on one card), f32, TF32 off, against one unsharded process:
                every rank's clip within SHARDED_SMALL_TOL, K1 (and K2)
-               launched on every rank
+               launched on every rank, the norm kernel on none (a frame
+               group takes the plain norm)
   sharded_full  slice_full's x8 model on one 10-frame 64² window → 512²,
                ddim25, face off, unsharded, then split over SHARD_RANKS
                gloo ranks (5 frames each) on the same noise: PSNR >
                SHARDED_FULL_PSNR_DB, per rank ms a step, bytes gathered,
                K1 launches (the unsharded count: every rank runs the whole
-               VSR++ recurrence), peak, each VSR++ site's gather timed alone
+               VSR++ recurrence), norm launches (none on a rank), peak, each
+               VSR++ site's gather timed alone
   train_dp     train_full's remat x8 model, two steps at B = SHARD_RANKS,
                T = 2, 512² in this process, then two data-parallel steps
                through TrainRunner(mesh=) on SHARD_RANKS gloo ranks (B = 1
@@ -209,6 +217,8 @@ from flair_tpu_torch.models.yolov5face import (
 from flair_tpu_torch.operators import SuperResolution
 from flair_tpu_torch.ops.attention import dot_product_attention, flash_attention
 from flair_tpu_torch.ops.dcn import deform_conv2d_raw
+from flair_tpu_torch.ops.norms import group_norm_act, group_norm_act_plain
+from flair_tpu_torch.models.common import GroupNorm32
 from flair_tpu_torch.ops.deform import (
     deform_conv2d_raw_plain, quantize_values)
 from flair_tpu_torch.parallel import (
@@ -230,7 +240,7 @@ from flair_tpu_torch.utils.convert import (
 from flair_tpu_torch.utils.png import read_png, write_png
 
 ALL_PHASES = ("device", "build", "kernel_dcn", "kernel_flash",
-              "kernel_probe", "slice_small",
+              "kernel_probe", "kernel_norm", "slice_small",
               "slice_small_blur", "slice_small_face", "slice_small_train",
               "slice_small_interp", "train_full", "train_full_blur",
               "interp_full", "davsr_full", "slice_full", "slice_full_int8",
@@ -371,6 +381,14 @@ SLEEP_CYCLES_PER_CALL = 400_000   # ~0.2 ms at the H100's SM clock
 DCN_PER_STEP = {"slice_full": 108, "slice_full_int8": 108,
                 "slice_full_gaussian": 180,
                 "slice_full_face": 108, "cli_x8": 108, "cli_jpeg": 180}
+# kernel_norm: (H = W, C, G) of one 10-frame window, bf16 in and out, SiLU:
+# x8's first and widest 512² norms, and at 32² its middle's 1 024 channels
+# and its widest, the first decoder block's 2 048 (the cat of h and its
+# skip); max error over the largest |output| against the plain version in
+# float32 (one bf16 rounding of the output)
+NORM_SHAPES = ((512, 64, 16), (512, 192, 16), (32, 1024, 16),
+               (32, 2048, 16))
+NORM_TOL_REL = 1e-2
 FLASH_PER_STEP = {"slice_full": 0, "slice_full_int8": 0,
                   "slice_full_gaussian": 16,
                   "slice_full_face": 0, "cli_x8": 0, "cli_jpeg": 16}
@@ -1408,10 +1426,21 @@ def attention_sites(model) -> int:
     return sum(isinstance(m, AttentionBlock) for m in model.modules())
 
 
+def count_norm_calls(model):
+    """([calls], hooks): forward pre-hooks counting ``model``'s GroupNorm32
+    calls (a remat recompute calls again)."""
+    calls = [0]
+
+    def hook(mod, args):
+        calls[0] += 1
+    return calls, [m.register_forward_pre_hook(hook) for m in model.modules()
+                   if isinstance(m, GroupNorm32)]
+
+
 def small_train_step(device):
     """One ``make_train_step`` of the goldens' x8 model (f32) on ``device``,
     B = 1, T = 3, 64², t and noise fixed. Returns (model, state, metrics,
-    K1 launches)."""
+    {kernel: launches}, GroupNorm32 calls)."""
     _, _, flat = golden("x8_s64")
     model = BicubicUNet(inner_channel=32, norm_groups=16, channel_mults=(1, 2),
                         attn_res=(32,), vsrpp_res=(64,), image_size=64,
@@ -1429,14 +1458,18 @@ def small_train_step(device):
     def dev(a):
         return torch.as_tensor(a, device=device)
 
-    saved = deform_conv2d_raw.launches
-    deform_conv2d_raw.launches = 0
+    saved = deform_conv2d_raw.launches, group_norm_act.launches
+    deform_conv2d_raw.launches = group_norm_act.launches = 0
+    calls, hooks = count_norm_calls(model)
     state, met = make_train_step(d, wrap_bicubic_train(d, model), cfg)(
         state, {"x_start": dev(x0), "low_res_input": dev(low)},
         t=dev(np.array([700])), noise=dev(noise))
-    launches = deform_conv2d_raw.launches
-    deform_conv2d_raw.launches = saved
-    return model, state, met, launches
+    for h in hooks:
+        h.remove()
+    launches = {"dcn_raw": deform_conv2d_raw.launches,
+                "group_norm": group_norm_act.launches}
+    deform_conv2d_raw.launches, group_norm_act.launches = saved
+    return model, state, met, launches, calls[0]
 
 
 def small_blur_train_step(device, x_scale=1.0):
@@ -1444,7 +1477,7 @@ def small_blur_train_step(device, x_scale=1.0):
     (SMALL_BLUR), f32, on ``device``: the gaussian task's 1000-step
     schedule, B = 1, T = 3, 64², separate ``rnn_input``, t and noise fixed,
     ``x_start`` scaled by ``x_scale``. Returns (model, state, metrics,
-    {kernel: launches})."""
+    {kernel: launches}, GroupNorm32 calls)."""
     _, _, flat = golden("gaussian_s64")
     model = BlurUNet(**SMALL_BLUR, use_checkpoint=True)
     model.load_state_dict(from_flax_blur_unet(flat))
@@ -1460,16 +1493,23 @@ def small_blur_train_step(device, x_scale=1.0):
     def dev(a):
         return torch.as_tensor(a, device=device)
 
-    saved = deform_conv2d_raw.launches, flash_attention.launches
+    saved = (deform_conv2d_raw.launches, flash_attention.launches,
+             group_norm_act.launches)
     deform_conv2d_raw.launches = flash_attention.launches = 0
+    group_norm_act.launches = 0
+    calls, hooks = count_norm_calls(model)
     state, met = make_train_step(d, wrap_blur_train(d, model), cfg)(
         state, {"x_start": dev(x0) * x_scale, "low_res_input": dev(low),
                 "rnn_input": dev(rnn)},
         t=dev(np.array([700])), noise=dev(noise))
+    for h in hooks:
+        h.remove()
     launches = {"dcn_raw": deform_conv2d_raw.launches,
-                "flash_attn": flash_attention.launches}
-    deform_conv2d_raw.launches, flash_attention.launches = saved
-    return model, state, met, launches
+                "flash_attn": flash_attention.launches,
+                "group_norm": group_norm_act.launches}
+    (deform_conv2d_raw.launches, flash_attention.launches,
+     group_norm_act.launches) = saved
+    return model, state, met, launches, calls[0]
 
 
 def train_errors(st_g, met_g, st_c, met_c, jump=None):
@@ -1515,8 +1555,9 @@ def train_ok(rec) -> bool:
 
 
 def phase_slice_small_train(ctx):
-    """One training step of the goldens' x8 model on cuda (K1 forward,
-    plain float32 DCN backward, cuDNN) against cpu (plain), f32 with TF32
+    """One training step of the goldens' x8 model on cuda (K1 and GroupNorm
+    kernel forwards, their plain float32 backwards, cuDNN; the norm kernel
+    launched 3 times a GroupNorm32 call) against cpu (plain), f32 with TF32
     off: loss and grad_norm within 1e-5 relative, every gradient within
     1e-4 of max(its largest entry, TRAIN_GRAD_FLOOR of the model's largest);
     the updated parameters where |g_cpu| is above that gradient's tolerance
@@ -1531,23 +1572,25 @@ def phase_slice_small_train(ctx):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t0 = time.time()
-    model, st_g, met_g, launches = small_train_step("cuda")
+    model, st_g, met_g, launches, norm_calls = small_train_step("cuda")
     secs = time.time() - t0
-    _, st_c, met_c, _ = small_train_step("cpu")
-    expect = 2 * 2 * dcn_sites(model)       # 2 branches × (T - 1) frames
+    _, st_c, met_c, *_ = small_train_step("cpu")
+    # 2 branches × (T - 1) frames a VSR++ site; 3 launches a norm call
+    expect = {"dcn_raw": 2 * 2 * dcn_sites(model),
+              "group_norm": 3 * norm_calls}
     rec = {"phase": "slice_small_train", "model": "x8_s64",
            **train_errors(st_g, met_g, st_c, met_c),
-           "dcn_launches": launches, "dcn_launches_expected": expect,
+           "launches": launches, "launches_expected": expect,
            "seconds_cuda": round(secs, 3)}
     emit(rec)
     ctx.setdefault("launches", {})["slice_small_train"] = {
-        "dcn_raw": launches, "flash_attn": 0}
-    if not (train_ok(rec) and launches == expect):
+        **launches, "flash_attn": 0}
+    if not (train_ok(rec) and launches == expect and norm_calls > 0):
         torch.backends.cudnn.allow_tf32 = True
         raise AssertionError(f"slice_small_train failed its checks: {rec}")
 
     t0 = time.time()
-    model, st_g, met_g, launches = small_blur_train_step("cuda")
+    model, st_g, met_g, launches, norm_calls = small_blur_train_step("cuda")
     secs = time.time() - t0
     # the card's own resolution: x_start one ulp up, one down, and a plain
     # rerun (cuDNN's backward may sum in another order)
@@ -1556,12 +1599,14 @@ def phase_slice_small_train(ctx):
         moved = small_blur_train_step("cuda", scale)[2]["grads"]
         for k, g in met_g["grads"].items():
             jump[k] = torch.maximum(jump[k], (moved[k] - g).abs().max().cpu())
-    _, st_c, met_c, _ = small_blur_train_step("cpu")
+    _, st_c, met_c, *_ = small_blur_train_step("cpu")
     torch.backends.cudnn.allow_tf32 = True
     # remat runs every region's forward twice: 2 branches × (T - 1) frames
-    # a VSR++ site, one call an attention block, each twice
+    # a VSR++ site, one call an attention block, each twice; 3 launches a
+    # norm call, recomputes included
     expect = {"dcn_raw": 2 * 2 * 2 * dcn_sites(model),
-              "flash_attn": 2 * attention_sites(model)}
+              "flash_attn": 2 * attention_sites(model),
+              "group_norm": 3 * norm_calls}
     rec = {"phase": "slice_small_train", "model": "gaussian_s64 (remat)",
            **train_errors(st_g, met_g, st_c, met_c, jump),
            "tensors": len(jump), "launches": launches,
@@ -2423,7 +2468,7 @@ def run_full(ctx, name, task, model, make_apply, clip, face=None,
     if int8:
         os.environ["FLAIR_DCN_INT8"] = "1"
     deform_conv2d_raw.launches = flash_attention.launches = 0
-    deform_conv2d_raw.launches_int8 = 0
+    deform_conv2d_raw.launches_int8 = group_norm_act.launches = 0
     for f in face or ():
         f.calls = 0
     t0 = time.time()
@@ -2439,11 +2484,14 @@ def run_full(ctx, name, task, model, make_apply, clip, face=None,
     secs = time.time() - t0
     launches = {"dcn_raw": deform_conv2d_raw.launches,
                 "dcn_raw_int8": deform_conv2d_raw.launches_int8,
-                "flash_attn": flash_attention.launches}
+                "flash_attn": flash_attention.launches,
+                "group_norm": group_norm_act.launches}
     k1 = DCN_PER_STEP[name] * steps * n_windows
+    norm_sites = sum(isinstance(m, GroupNorm32) for m in model.modules())
     expect = {"dcn_raw": 0 if int8 else k1,
               "dcn_raw_int8": k1 if int8 else 0,
-              "flash_attn": FLASH_PER_STEP[name] * steps * n_windows}
+              "flash_attn": FLASH_PER_STEP[name] * steps * n_windows,
+              "group_norm": 3 * norm_sites * steps * n_windows}
     out_size = base.output_size
     rec = {"phase": name, "task": task, "steps": FULL_STEPS,
            "windows": n_windows, "shape": list(out.shape),
@@ -2592,10 +2640,11 @@ def rank_small_restore(task):
     no_tf32()
     mesh = frame_mesh()
     deform_conv2d_raw.launches = flash_attention.launches = 0
-    all_gather_frames.bytes = 0
+    all_gather_frames.bytes = group_norm_act.launches = 0
     out = small_sharded_restore(task, "cuda", mesh)
     return out, {"dcn_raw": deform_conv2d_raw.launches,
-                 "flash_attn": flash_attention.launches}, \
+                 "flash_attn": flash_attention.launches,
+                 "group_norm": group_norm_act.launches}, \
         all_gather_frames.bytes
 
 
@@ -2604,11 +2653,15 @@ def phase_sharded_small(ctx):
     SHARD_WIN) on SHARD_RANKS gloo ranks sharing this card, each rank on
     its 2 frames, and through the same sharded code on one NCCL rank,
     against one unsharded process on the card: every rank's clip within
-    SHARDED_SMALL_TOL, K1 (and, gaussian, K2) launched on every rank."""
+    SHARDED_SMALL_TOL, K1 (and, gaussian, K2) launched on every rank; the
+    norm kernel launched unsharded and on no rank (a frame group takes the
+    plain version: its statistics need an all-reduce between the passes)."""
     no_tf32()
     bad = []
     for task in ("x8_bicubic", "gaussian"):
+        group_norm_act.launches = 0
         want = small_sharded_restore(task, "cuda")
+        norm_unsharded = group_norm_act.launches
         for backend, n in (("gloo", SHARD_RANKS), ("nccl", 1)):
             t0 = time.time()
             outs = world(ctx, backend, n).run(rank_small_restore, task)
@@ -2619,13 +2672,14 @@ def phase_sharded_small(ctx):
                                    for o, _, _ in outs],
                    "tol": SHARDED_SMALL_TOL,
                    "launches": [c for _, c, _ in outs],
+                   "group_norm_unsharded": norm_unsharded,
                    "bytes_gathered": [b for _, _, b in outs],
                    "seconds": round(secs, 3)}
             emit(rec)
             need_k2 = task != "x8_bicubic"
-            launched = all(c["dcn_raw"] > 0 and (c["flash_attn"] > 0
-                                                 or not need_k2)
-                           for c in rec["launches"])
+            launched = norm_unsharded > 0 and all(
+                c["dcn_raw"] > 0 and (c["flash_attn"] > 0 or not need_k2)
+                and c["group_norm"] == 0 for c in rec["launches"])
             if not (launched and max(rec["max_abs_err"])
                     <= SHARDED_SMALL_TOL):
                 bad.append(rec)
@@ -2646,8 +2700,8 @@ def full_x8(use_checkpoint=False, seed=0):
 
 def full_window_restore(model, clip, mesh=None):
     """One SHARD_FULL_FRAMES-frame window of x8 guided DDIM-25 at 512²,
-    face off, noise from a seeded cuda generator: (clip, seconds, K1
-    launches, peak GiB), every count set to 0 just before the run."""
+    face off, noise from a seeded cuda generator: (clip, seconds, K1 / K2 /
+    norm launches, peak GiB), every count set to 0 just before the run."""
     dev = torch.device("cuda")
     base = TASK_CONFIGS["x8_bicubic"]
     d = make_task_diffusion(base.task, FULL_STEPS, device=dev)
@@ -2656,7 +2710,7 @@ def full_window_restore(model, clip, mesh=None):
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     deform_conv2d_raw.launches = flash_attention.launches = 0
-    all_gather_frames.bytes = 0
+    all_gather_frames.bytes = group_norm_act.launches = 0
     t0 = time.time()
     out = restore_video(clip, cfg, apply, diffusion=d, sampler="ddim",
                         device=dev, mesh=mesh,
@@ -2664,7 +2718,8 @@ def full_window_restore(model, clip, mesh=None):
     torch.cuda.synchronize()
     return (out, time.time() - t0,
             {"dcn_raw": deform_conv2d_raw.launches,
-             "flash_attn": flash_attention.launches},
+             "flash_attn": flash_attention.launches,
+             "group_norm": group_norm_act.launches},
             torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
@@ -2702,17 +2757,20 @@ def phase_sharded_full(ctx):
     sharing this card with SHARD_FULL_FRAMES / SHARD_RANKS frames each, on
     the same noise: each rank's clip > SHARDED_FULL_PSNR_DB against the
     unsharded one, K1 launched the unsharded count on every rank (each
-    runs the whole VSR++ recurrence); per rank ms a step, bytes gathered a
+    runs the whole VSR++ recurrence), the norm kernel 3 a GroupNorm32 a
+    call unsharded and on no rank (a frame group); per rank ms a step, bytes gathered a
     step, peak memory, and each VSR++ site's gather timed alone."""
     steps = int(FULL_STEPS[len("ddim"):])
     clip = np.random.default_rng(0).uniform(
         0, 1, (SHARD_FULL_FRAMES, 64, 64, 3)).astype(np.float32)
     model = full_x8().eval()
     want, secs, launches, peak = full_window_restore(model, clip)
+    norm_sites = sum(isinstance(m, GroupNorm32) for m in model.modules())
     del model
     torch.cuda.empty_cache()
     expect = {"dcn_raw": DCN_PER_STEP["slice_full"] * steps,
-              "flash_attn": 0}
+              "flash_attn": 0, "group_norm": 3 * norm_sites * steps}
+    expect_rank = {**expect, "group_norm": 0}
     ranks = world(ctx).run(rank_full_restore, clip)
     sites = 3   # VSR++ sites at each of 512² and 256² (down 1, up 2)
     rec = {"phase": "sharded_full", "steps": FULL_STEPS,
@@ -2727,13 +2785,14 @@ def phase_sharded_full(ctx):
                          "gather_ms_per_step": sites * sum(g.values())}
                         for o, s, n, pk, b, g in ranks],
            "min_psnr_db": SHARDED_FULL_PSNR_DB, "launches_expected": expect,
-           "card": ctx["smi"]}
+           "launches_expected_a_rank": expect_rank, "card": ctx["smi"]}
     emit(rec)
     for r, pr in enumerate(rec["per_rank"]):
         ctx["launches"][f"sharded_full/rank{r}"] = pr["launches"]
     outs = [o for o, *_ in ranks]
     if not (launches == expect
-            and all(pr["launches"] == expect for pr in rec["per_rank"])
+            and all(pr["launches"] == expect_rank
+                    for pr in rec["per_rank"])
             and all(o.shape == want.shape and np.isfinite(o).all()
                     for o in outs)
             and all(pr["psnr_db_vs_unsharded"] > SHARDED_FULL_PSNR_DB
@@ -3190,6 +3249,74 @@ def phase_profile_step(ctx):
             profile_call(ctx, "face_fn", lambda: face_fn(init, x, mats))
 
 
+def norm_inputs(hw, c, g, seed, dev):
+    """A seeded (1, 10, hw, hw, c) bf16 window with per-channel means and
+    scales, weight near 1 and bias near 0 in float32."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device=dev) * scale
+    x = randn(1, 10, hw, hw, c) * (1 + randn(c).abs()) + randn(c)
+    return (x.to(torch.bfloat16), g, 1 + randn(c, scale=0.1),
+            randn(c, scale=0.1))
+
+
+def phase_kernel_norm(ctx):
+    """The GroupNorm kernel with SiLU (as ResBlock's in_norm and SR3Block
+    run it) at NORM_SHAPES: its bf16 output against the plain version on
+    float32 copies, its launches, and its time beside the plain
+    composition's in bf16 and the bound; the profiler's device time of
+    each of its three kernels."""
+    dev = torch.device("cuda")
+    rows = []
+    for i, (hw, c, g) in enumerate(NORM_SHAPES):
+        args = norm_inputs(hw, c, g, 700 + i, dev)
+        x = args[0]
+        before = group_norm_act.launches
+        with torch.no_grad():
+            out = group_norm_act(*args, act="silu")
+            ref = group_norm_act_plain(x.float(), *args[1:], act="silu")
+        torch.cuda.synchronize()
+        launched = group_norm_act.launches - before
+        err = (out.float() - ref).abs().max().item()
+        rel = err / ref.abs().max().item()
+        del out, ref
+        with torch.no_grad():
+            ms = cuda_ms(lambda: group_norm_act(*args, act="silu"), reps=20)
+            plain_ms = cuda_ms(
+                lambda: group_norm_act_plain(*args, act="silu"), reps=20)
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    group_norm_act(*args, act="silu")
+                torch.cuda.synchronize()
+        group_norm_act.launches = before + launched   # timing does not count
+        by_kernel = {}
+        for k, v in device_ms_by_kernel(prof).items():
+            m = re.search(r"group_norm_\w+(<[^()]*>)?", k)
+            key = m.group(0) if m else k[:60]
+            by_kernel[key] = by_kernel.get(key, 0.0) + v / 5
+        nbytes = 3 * x.numel() * x.element_size()
+        row = {"shape": f"x(1,10,{hw},{hw},{c}) G={g}",
+               "dtype": str(x.dtype), "act": "silu", "max_abs_err": err,
+               "max_rel_err": rel, "tol_rel": NORM_TOL_REL,
+               "launches_a_call": launched, "ms": ms, "plain_ms": plain_ms,
+               "kernel_ms": by_kernel,
+               "library_ms": None, "bound_ms": nbytes / MEM_BW * 1e3,
+               "bound_by": "bytes", "bytes": nbytes,
+               "bound_share": nbytes / MEM_BW * 1e3 / ms,
+               "card": ctx["smi"]}
+        emit({"phase": "kernel_norm", **row})
+        rows.append(row)
+        if not (rel <= NORM_TOL_REL and launched == 3):
+            raise AssertionError(f"group_norm kernel fails at {row['shape']}: "
+                                 f"rel {rel} (tol {NORM_TOL_REL}), "
+                                 f"{launched} launches")
+        del x, args
+        torch.cuda.empty_cache()
+    ctx["norm_rows"] = rows
+
+
 def kernel_record(name, source, replaces, rows, launches, main_path,
                   grad_rows=()):
     """One entry of the ``kernels`` line: the numbers of the first shape
@@ -3237,6 +3364,7 @@ def main() -> int:
             w.close()
         shutil.rmtree(ctx["tmp"], ignore_errors=True)
     launches = {"dcn_raw": {}, "dcn_raw_int8": {}, "flash_attn": {},
+                "group_norm": {},
                 "probe_dot": ctx.get("probe_launches", {})}
     for path, counts in ctx.get("launches", {}).items():
         for kern, n in counts.items():
@@ -3263,6 +3391,11 @@ def main() -> int:
             "probe_dot", "flair_tpu_torch/csrc/probe_dot.cu",
             "tools/probe_int8.py:82", ctx["probe_rows"],
             launches["probe_dot"], "probe_256"))
+    if "kernel_norm" in phases:
+        kernels.append(kernel_record(
+            "group_norm", "flair_tpu_torch/csrc/group_norm.cu",
+            "none (XLA fuses GroupNorm on the TPU)", ctx["norm_rows"],
+            launches["group_norm"], "slice_full"))
     if kernels:
         emit({"kernels": kernels})
     print(ctx["smi"], flush=True)

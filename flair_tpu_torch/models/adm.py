@@ -228,7 +228,7 @@ class BlurUNet(nn.Module):
                 if level and i == self.num_res_blocks:
                     h = block(f"out_{level}_up", h, emb, b)
                     ds //= 2
-        h = silu(self.out_norm(h.float(), b))
+        h = self.out_norm(h, b, act="silu", out_dtype=torch.float32)
         out = self.out_conv(h)
         return nhwc(out).reshape(b, t, hh, ww, -1)
 
@@ -331,5 +331,5 @@ class EncoderUNetModel(nn.Module):
         h = self.mid_res1(h, emb, b)
         h = self.mid_attn(h, b)
         h = self.mid_res2(h, emb, b)
-        h = silu(self.out_norm(h, b)).float().mean(dim=(2, 3))    # (N, C)
+        h = self.out_norm(h, b, act="silu").float().mean(dim=(2, 3))  # (N, C)
         return self.out_proj(h).reshape(b, t, -1)

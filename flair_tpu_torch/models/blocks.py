@@ -60,7 +60,7 @@ class ResBlock(nn.Module):
 
     def forward(self, x, emb, b: int):
         with span("temporal" if self.dims == 3 else "resnet"):
-            h = silu(self.in_norm(x, b))
+            h = self.in_norm(x, b, act="silu")
             if self.up:
                 h = F.interpolate(h, scale_factor=2, mode="nearest")
                 x = F.interpolate(x, scale_factor=2, mode="nearest")
@@ -68,13 +68,13 @@ class ResBlock(nn.Module):
                 h = F.avg_pool2d(h, 2)
                 x = F.avg_pool2d(x, 2)
             h = self._conv(self.in_conv, h, b)
-            emb_out = self.emb_proj(silu(emb))[:, :, None, None]  # N, C', 1, 1
+            emb_out = self.emb_proj(silu(emb))                   # N, C'
             if self.use_scale_shift_norm:
                 scale, shift = emb_out.chunk(2, dim=1)
-                h = self.out_norm(h, b) * (1 + scale) + shift
+                h = self.out_norm(h, b, scale=scale, shift=shift, act="silu")
             else:
-                h = self.out_norm(h + emb_out.to(h.dtype), b)
-            h = self._conv(self.out_conv, silu(h), b)
+                h = self.out_norm(h, b, pre_add=emb_out, act="silu")
+            h = self._conv(self.out_conv, h, b)
             skip = x if self.skip is None else self.skip(x)
             return skip + h
 
@@ -138,7 +138,8 @@ class AttentionBottleBlock(AttentionBlock):
 
 
 class SR3Block(nn.Module):
-    """GroupNorm → Swish → 3×3 conv (sr3.py:112-124)."""
+    """GroupNorm → Swish → 3×3 conv (sr3.py:112-124); ``pre_add`` (B·T, C)
+    is added to x before the norm."""
 
     def __init__(self, in_ch: int, out_ch: int, norm_groups: int = 32,
                  dtype=torch.float32):
@@ -146,8 +147,8 @@ class SR3Block(nn.Module):
         self.norm = GroupNorm32(in_ch, norm_groups)
         self.conv = Conv2d(in_ch, out_ch, 3, dtype=dtype)
 
-    def forward(self, x, b: int):
-        return self.conv(silu(self.norm(x, b)))
+    def forward(self, x, b: int, pre_add=None):
+        return self.conv(self.norm(x, b, pre_add=pre_add, act="silu"))
 
 
 class SR3ResnetBlock(nn.Module):
@@ -166,8 +167,7 @@ class SR3ResnetBlock(nn.Module):
     def forward(self, x, emb, b: int):
         with span("resnet"):
             h = self.block1(x, b)
-            h = h + self.noise_proj(emb)[:, :, None, None].to(h.dtype)
-            h = self.block2(h, b)
+            h = self.block2(h, b, pre_add=self.noise_proj(emb))
             if self.res_conv is not None:
                 x = self.res_conv(x)
             return h + x

@@ -17,7 +17,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.norms import group_norm, shift_window_group_norm
+from ..ops.norms import group_norm_act, shift_window_group_norm
 from ..parallel.halo import halo_exchange_frames
 
 
@@ -170,7 +170,10 @@ class GroupNorm32(nn.Module):
     """GroupNorm with float32 statistics, JOINT over the frames of each clip:
     ``forward(x, b)`` with x (B·T, C, H, W). The group count is
     gcd(num_groups, C), as in the JAX package. Under ``frame_group`` the
-    statistics are joint over every rank's frames (JAX's ``axis_name``)."""
+    statistics are joint over every rank's frames (JAX's ``axis_name``).
+    The keywords fold the callers' neighbouring operations into the norm
+    (``ops.norms.group_norm_act``): ``pre_add``, ``scale`` and ``shift``
+    are (B·T, C) tensors, ``act`` None or "silu"."""
 
     def __init__(self, channels: int, num_groups: int = 32):
         super().__init__()
@@ -179,11 +182,13 @@ class GroupNorm32(nn.Module):
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
 
-    def forward(self, x: torch.Tensor, b: int) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, b: int, *, pre_add=None, scale=None,
+                shift=None, act=None, out_dtype=None) -> torch.Tensor:
         n, c, h, w = x.shape
         v = nhwc(x).reshape(b, n // b, h, w, c)
-        y = group_norm(v, self.num_groups, self.weight, self.bias,
-                       group=self.frame_group)
+        y = group_norm_act(v, self.num_groups, self.weight, self.bias,
+                           pre_add=pre_add, scale=scale, shift=shift, act=act,
+                           out_dtype=out_dtype, group=self.frame_group)
         return nchw(y.reshape(n, h, w, c))
 
 

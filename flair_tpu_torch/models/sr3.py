@@ -245,6 +245,6 @@ class BicubicUNet(nn.Module):
                 h = getattr(self, f"upsample_{ind}")(
                     F.interpolate(h, scale_factor=2, mode="nearest"))
                 now_res *= 2
-        h = silu(self.final_norm(h.float(), b))
+        h = self.final_norm(h, b, act="silu", out_dtype=torch.float32)
         eps = self.final_conv(h)
         return nhwc(eps).reshape(b, t, hh, ww, -1)
