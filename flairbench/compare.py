@@ -18,6 +18,19 @@ and reads six numbers, each the worst frame's relative L2 gap:
   the reference's last step of window 1, taken from the program's x and
   output at that step.
 
+With the face prior on, the reference denoiser takes the VSR++ weights
+it works out from the program's ParseNet logits on the init frames, the
+reference step fuses the program's restored faces (FLAIR's paste,
+``reference/face.py``), and two more numbers are read:
+
+- ``face_w1`` / ``face_w2``: the worst of the gaps in a window's face
+  work: at each recorded call, the program's crop against the reference's
+  crop of its own x0 (infinite where one side runs the face prior at a
+  step and the other does not), the program's VSR++ weights against the
+  reference's; and, where the configuration names reference face
+  networks, their outputs on the program's recorded inputs against the
+  program's.
+
 ``lower=True`` reads the control instead: the reference in the nearest
 precision below the configuration's, put in the program's place.
 """
@@ -28,7 +41,8 @@ import contextlib
 
 import torch
 
-from .inputs import Noise, fill_weights
+from .inputs import FACE_NETS, FACE_WEIGHTS, Noise, fill_weights
+from .reference import face as face_ref
 from .reference.guidance import Guidance, init_frames
 from .reference.nn import set_precision
 from .roofline import reference_class
@@ -50,6 +64,11 @@ def rel(a: torch.Tensor, r: torch.Tensor) -> float:
     return float((d / r.float().flatten(2).norm(dim=2).clamp(min=1e-30)).max())
 
 
+def rel_images(a: torch.Tensor, r: torch.Tensor) -> float:
+    """``rel`` over (N, ...) tensors, one image a row."""
+    return rel(a.reshape(1, len(a), -1), r.reshape(1, len(r), -1))
+
+
 @contextlib.contextmanager
 def no_tf32():
     saved = (torch.backends.cuda.matmul.allow_tf32,
@@ -63,11 +82,72 @@ def no_tf32():
          torch.backends.cudnn.allow_tf32) = saved
 
 
+class FacePrior:
+    """The reference's side of a face-on window: the configuration's
+    frame → face matrix for each of the ``frames`` images, its reference
+    face networks (where named, their weights drawn again from the seed),
+    and the program's recorded face tensors ``rec`` by kind and call."""
+
+    def __init__(self, config, seed, rec, frames, dev):
+        spec = config["face"]
+        self.size = config["output_size"]
+        self.mats = torch.tensor(spec["matrix"], dtype=torch.float32,
+                                 device=dev).expand(frames, 2, 3)
+        self.parser = spec.get("parsenet") is not None
+        self.bg_weight = face_ref.TASKS[config["task"]][2]
+        self.nets = {}
+        for i, name in enumerate(FACE_NETS):
+            entry = spec.get(name)
+            if entry is not None and entry.get("reference"):
+                with torch.device("meta"):
+                    net = reference_class(entry)(**entry["kwargs"])
+                fill_weights(net, seed, dev, FACE_WEIGHTS, i)
+                self.nets[name] = net
+        self.rec = {kind: {k: v.to(dev) for k, v in rec.get(kind, {}).items()}
+                    for kind in ("weights", "crop", "restored", "parse",
+                                 "init_parse")}
+
+    def weights(self, logits, shape):
+        """FLAIR's VSR++ weights (video_sample.py:427-444) from ParseNet's
+        logits of the init frames: the task's background weight where
+        class 0 wins, 1 elsewhere; None without a parser or logits."""
+        if not self.parser or logits is None:
+            return None
+        w = torch.ones(logits.shape[:-1], device=logits.device)
+        w[logits.argmax(-1) == 0] = self.bg_weight
+        return w.reshape(*shape[:4], 1)
+
+    def net(self, name, faces, lower):
+        """The reference network ``name`` on the program's ``faces``, one
+        precision lower for the control."""
+        net = self.nets[name]
+        set_precision(net, lower)
+        out = face_ref.APPLY[name](net, faces)
+        set_precision(net, False)
+        return out
+
+    def crop(self, x0):
+        """The faces of (B, T, H, W, 3) frames, (B·T, S, S, 3)."""
+        return face_ref.crop(x0.reshape(-1, *x0.shape[2:]), self.mats,
+                             self.size)
+
+    def step(self, k, low=lambda v: v):
+        """What the reference step fuses after call ``k``: the program's
+        restored faces, their logits and the matrices; None where the
+        program ran no face prior there."""
+        restored = self.rec["restored"].get(k)
+        if restored is None:
+            return None
+        logits = self.rec["parse"].get(k)
+        return (low(restored), None if logits is None else low(logits),
+                self.mats)
+
+
 def readings(config, traffic, seed, clip, rec, p, device, lower=False):
-    """The six numbers of one run: the program's recorded tensors ``rec``
-    ({"x": {k: tensor}, "out": {k: tensor}}) against the reference, or,
-    with ``lower``, the control against the reference on the same
-    inputs."""
+    """The numbers of one run: the program's recorded tensors ``rec``
+    ({kind: {call: tensor}}, ``harness.Window.buffers``) against the
+    reference, or, with ``lower``, the control against the reference on
+    the same inputs."""
     dev = torch.device(device)
     n = int(config["steps"][len("ddim"):])
     win, ov = traffic["window"], traffic["overlap"]
@@ -81,6 +161,8 @@ def readings(config, traffic, seed, clip, rec, p, device, lower=False):
     noise = Noise(seed, dev)
     x = {k: v.to(dev) for k, v in rec["x"].items()}
     out = {k: v.to(dev) for k, v in rec["out"].items()}
+    face = (FacePrior(config, seed, rec, frames.shape[0] * win, dev)
+            if config.get("face_prior") else None)
 
     def cond(t):
         v = (g.acp[t] ** 0.5 if cls.CONDITIONING == "noise_level"
@@ -106,29 +188,81 @@ def readings(config, traffic, seed, clip, rec, p, device, lower=False):
             else:
                 vals[f"start_w{w + 1}"] = rel(x[k0], start)
             t = n - 1 - s % n
+            kw = {}
+            if face is not None:
+                logits = face.rec["init_parse"].get(k0)
+                wts = face.weights(logits, init.shape)
+                if wts is not None:
+                    kw["weights"] = wts
+                vals[f"face_w{w + 1}"] = face_gaps(
+                    face, g, x, out, p, w, s, init, y, logits, wts, lower)
             flows = ref.flows(rnn)
-            eps = ref(x[s], cond(t), init, flows)
+            eps = ref(x[s], cond(t), init, flows, **kw)
+            side = out[s]
             if lower:
                 set_precision(ref, True)
-                vals[f"eps_w{w + 1}"] = rel(ref(x[s], cond(t), init, flows),
-                                            eps)
+                side = ref(x[s], cond(t), init, flows, **kw)
                 set_precision(ref, False)
-            else:
-                vals[f"eps_w{w + 1}"] = rel(out[s], eps)
-            del flows, eps
+            vals[f"eps_w{w + 1}"] = rel(side, eps)
+            del flows, eps, side
             pins = None
             if w:
-                last = g.update(x[n - 1], out[n - 1], 0, y_w1)
+                last = g.update(x[n - 1], out[n - 1], 0, y_w1,
+                                face=face and face.step(n - 1))
                 pins = last[:, win - ov:win]
-            step = g.update(x[s], out[s], t, y, pins)
+            step = g.update(x[s], out[s], t, y, pins, face=face and face.step(s))
             if lower:
                 lp = None if pins is None else low(pins)
-                step_low = g.update(low(x[s]), low(out[s]), t, low(y), lp)
+                step_low = g.update(low(x[s]), low(out[s]), t, low(y), lp,
+                                    face=face and face.step(s, low))
                 vals[f"step_w{w + 1}"] = rel(step_low, step)
             else:
                 vals[f"step_w{w + 1}"] = rel(x[s + 1], step)
             y_w1 = y
     return vals
+
+
+def face_gaps(face, g, x, out, p, w, s, init, y, logits, wts, lower):
+    """``face_w<w + 1>``: the worst gap of window ``w``'s face work (the
+    module's docstring); the control's where ``lower``, on the same
+    program inputs."""
+    inf = float("inf")
+    rec, n = face.rec, len(g.acp)
+    gaps = [0.0]
+    if face.parser:
+        if wts is None:          # the program parsed no init frames
+            side = None
+        elif lower:
+            side = face.weights(logits.bfloat16(), init.shape)
+        else:
+            side = rec["weights"].get(s)
+        gaps.append(inf if side is None else rel(side, wts))
+    for k in (k for k in p["out"] if k // n == w):
+        t = n - 1 - k % n
+        crop = rec["crop"].get(k)
+        if g.in_face_window(t) != (crop is not None):
+            gaps.append(inf)     # one side runs the face prior, one not
+            continue
+        if crop is None:
+            continue
+        ref_crop = face.crop(g.x0(x[k], out[k], t, y))
+        if lower:
+            crop = face.crop(g.x0(x[k].bfloat16(), out[k].bfloat16(), t,
+                                  y.bfloat16()))
+        gaps.append(rel_images(crop, ref_crop))
+        restored = rec["restored"].get(k)
+        for name, inp, got in (("codeformer", crop, restored),
+                               ("parsenet", restored, rec["parse"].get(k))):
+            if name in face.nets and inp is not None:
+                side = face.net(name, inp, True) if lower else got
+                gaps.append(inf if side is None else rel_images(
+                    side, face.net(name, inp, False)))
+    if "parsenet" in face.nets:
+        frames = init.reshape(-1, *init.shape[2:])
+        side = face.net("parsenet", frames, True) if lower else logits
+        gaps.append(inf if side is None else rel_images(
+            side, face.net("parsenet", frames, False)))
+    return max(gaps)
 
 
 def verdict(vals: dict, limits: dict) -> dict:

@@ -9,12 +9,18 @@ motion, window and overlap). Per-layer metrics are the readers
 and entries; this file reads them by name.
 
 The window drives ``flair_tpu_torch.pipeline.video.restore_video`` as
-``python -m flair_tpu_torch.cli`` does (ddim, η = 0, face prior off)
-through the harness's ``Window``, which wraps the program's
-``model_apply``. It records the calls ``compare.plan`` names and closes
-the window at the first denoiser call that starts past ``seconds`` (and
-no earlier than that plan needs) by raising ``WindowClosed`` out of
-``restore_video``; the window's one synchronize follows.
+``python -m flair_tpu_torch.cli`` does (ddim, η = 0) through the
+harness's ``Window``, which wraps the program's ``model_apply``. It
+records the calls ``compare.plan`` names and closes the window at the
+first denoiser call that starts past ``seconds`` (and no earlier than
+that plan needs) by raising ``WindowClosed`` out of ``restore_video``; the
+window's one synchronize follows.
+
+A configuration with ``"face_prior": true`` runs FLAIR's face prior as
+the CLI does, its networks named by the configuration's ``face`` object
+(``build_face``), with ``FixedFace`` in RetinaFace's place. The window
+then also records, at the planned calls, the VSR++ weights the denoiser
+receives and what enters and leaves the face networks.
 """
 
 from __future__ import annotations
@@ -28,6 +34,7 @@ import os
 import sys
 import time
 
+import numpy as np
 import torch
 
 from . import compare, inputs
@@ -60,23 +67,41 @@ def steps_per_window(config) -> int:
 
 class Window:
     """The program's ``model_apply`` as ``restore_video`` calls it, with
-    the harness around each call: copies of the planned calls' x and
-    output into host buffers (non-blocking), the close, and with
-    ``trace`` a CUDA event before and after each call."""
+    the harness around each call: copies of the planned calls' tensors
+    into host buffers (non-blocking), the close, and with ``trace`` a
+    CUDA event before and after each call.
 
-    def __init__(self, apply, *, seconds=0.0, min_calls=0, buffers=None,
-                 trace=False):
+    ``slots``: {kind: {call: pinned host tensor}}, the planned copies;
+    ``buffers`` holds those written, by kind and call: ``x`` entering a
+    call, its ``out``, the VSR++ ``weights`` it received; with ``face``
+    (``build_face``'s helper and appliers), the ``crop`` entering
+    CodeFormer, CodeFormer's output (``restored``) and ParseNet's logits
+    on it (``parse``) in the update after a call, and ParseNet's logits
+    on a window's init frames (``init_parse``), keyed by the window's
+    first call. ``shapes`` keeps each kind's last shape."""
+
+    def __init__(self, apply, *, seconds=0.0, min_calls=0, slots=None,
+                 trace=False, face=None):
         self.apply = apply
         self.flows_fn, self.model = apply.flows_fn, apply.model
         self.seconds, self.min_calls = seconds, min_calls
-        self.buffers = buffers or {"x": {}, "out": {}}
+        self.slots = slots or {}
+        self.buffers = {kind: {} for kind in self.slots}
+        self.shapes = {}
         self.trace, self.events = trace, []
         self.calls, self.t0 = 0, None
+        self.face, self.face_call = face, None
+
+    def record(self, kind, k, v):
+        self.shapes[kind] = tuple(v.shape)
+        buf = self.slots.get(kind, {}).get(k)
+        if buf is not None:
+            buf.copy_(v, non_blocking=True)
+            self.buffers[kind][k] = buf
 
     def __call__(self, x, t, low_res, rnn_input, vsrpp_weights, flows=None):
         k = self.calls
-        if k in self.buffers["x"]:
-            self.buffers["x"][k].copy_(x, non_blocking=True)
+        self.record("x", k, x)
         if (k >= self.min_calls
                 and time.perf_counter() - self.t0 >= self.seconds):
             raise WindowClosed
@@ -88,25 +113,93 @@ class Window:
         out = self.apply(x, t, low_res, rnn_input, vsrpp_weights, flows)
         if self.trace:
             ev[1].record()
-        self.out_shape = tuple(out.shape)
-        if k in self.buffers["out"]:
-            self.buffers["out"][k].copy_(out, non_blocking=True)
+        self.record("out", k, out)
+        if vsrpp_weights is not None:
+            self.record("weights", k, vsrpp_weights)
         self.calls += 1
         return out
 
+    def codeformer(self, faces):
+        """CodeFormer in the update after the last call."""
+        k = self.face_call = self.calls - 1
+        self.record("crop", k, faces)
+        out = self.face[1](faces)
+        self.record("restored", k, out)
+        return out
+
+    def parsenet(self, faces):
+        """ParseNet on the faces CodeFormer just restored, or else on the
+        init frames of the window whose first call is next."""
+        logits = self.face[2](faces)
+        if self.face_call is None:
+            self.record("init_parse", self.calls, logits)
+        else:
+            self.record("parse", self.face_call, logits)
+            self.face_call = None
+        return logits
+
+    def face_keywords(self) -> dict:
+        """``restore_video``'s face keywords: none with the prior off."""
+        if self.face is None:
+            return {}
+        return {"face_helper": self.face[0],
+                "codeformer_apply": self.codeformer,
+                "parsenet_apply": self.face[2] and self.parsenet}
+
+
+class FixedFace:
+    """RetinaFace's stand-in: the configuration's frame → face matrix for
+    every frame. Seeded random detector weights find no reliable face, and
+    detection runs once a window on the host, so the benchmark leaves it
+    out."""
+
+    def __init__(self, matrix):
+        self.matrix = np.asarray(matrix, np.float32)
+
+    def get_affine_matrices(self, frames01, **kw):
+        return [self.matrix] * len(frames01)
+
+
+def model_kwargs(kwargs):
+    return {k: tuple(v) if isinstance(v, list) else v
+            for k, v in kwargs.items()}
+
+
+def build_face(config, seed, device):
+    """(``FixedFace``, codeformer_apply, parsenet_apply or None): each
+    network of the configuration's ``face`` object by its registry name,
+    keyword arguments and port wrapper, in the configuration's dtype, its
+    weights drawn from a stream of its own."""
+    from flair_tpu_torch.models.registry import get_model
+    from flair_tpu_torch.pipeline import wrappers
+    spec = config["face"]
+    out = [FixedFace(spec["matrix"])]
+    for i, name in enumerate(inputs.FACE_NETS):
+        entry = spec.get(name)
+        if entry is None:
+            out.append(None)
+            continue
+        with torch.device(device):
+            net = get_model(entry["model"],
+                            dtype=getattr(torch, config["dtype"]),
+                            **model_kwargs(entry["kwargs"]))
+        inputs.fill_weights(net, seed, device, inputs.FACE_WEIGHTS, i)
+        out.append(getattr(wrappers, entry["wrapper"])(
+            net.to(device).eval()))
+    return tuple(out)
+
 
 def build_program(config, seed, device):
-    """The program's denoiser, diffusion and task configuration as the
-    CLI builds them, with the benchmark's seeded weights."""
+    """The program's denoiser, diffusion, task configuration and face
+    prior (None with it off) as the CLI builds them, with the benchmark's
+    seeded weights."""
     from flair_tpu_torch.diffusion import make_task_diffusion
     from flair_tpu_torch.models.registry import get_model
     from flair_tpu_torch.pipeline import wrappers
-    from flair_tpu_torch.pipeline.video import TASK_CONFIGS
-    kwargs = {k: tuple(v) if isinstance(v, list) else v
-              for k, v in config["model_kwargs"].items()}
+    from flair_tpu_torch.pipeline.video import TASK_CONFIGS, scale_tau
     with torch.device(device):
         model = get_model(config["model"], dtype=getattr(torch, config["dtype"]),
-                          **kwargs)
+                          **model_kwargs(config["model_kwargs"]))
     inputs.fill_weights(model, seed, device)
     model = model.to(device).eval()
     d = make_task_diffusion(config["task"], config["steps"], device=device)
@@ -114,7 +207,13 @@ def build_program(config, seed, device):
     cfg = dataclasses.replace(
         TASK_CONFIGS[config["task"]], steps=config["steps"],
         input_size=config["input_size"], output_size=config["output_size"])
-    return model, d, apply, cfg
+    face = None
+    if config.get("face_prior"):
+        face = build_face(config, seed, device)
+        # the CLI keeps the demo's face window as a fraction of the schedule
+        cfg = dataclasses.replace(cfg, tau=scale_tau(cfg.tau,
+                                                     d.num_timesteps))
+    return model, d, apply, cfg, face
 
 
 def restore(clip, cfg, d, window, traffic, noise, device):
@@ -123,7 +222,7 @@ def restore(clip, cfg, d, window, traffic, noise, device):
     try:
         restore_video(clip, cfg, window, diffusion=d, win=traffic["window"],
                       overlap=traffic["overlap"], sampler="ddim", eta=0.0,
-                      device=device, noise_fn=noise)
+                      device=device, noise_fn=noise, **window.face_keywords())
     except WindowClosed:
         pass
     else:
@@ -142,25 +241,25 @@ def run_window(config, traffic, seed, seconds, trace, device, t_start):
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     n = steps_per_window(config)
-    model, d, apply, cfg = build_program(config, seed, dev)
+    model, d, apply, cfg, face = build_program(config, seed, dev)
     clip = inputs.moving_clip(seed, traffic["clips"], traffic["frames"],
                               config["input_size"], traffic["shift"])
     # warm-up: the first window's preparation and its first calls, with
     # noise of its own
-    warm = Window(apply, min_calls=traffic["warmup_calls"])
+    warm = Window(apply, min_calls=traffic["warmup_calls"], face=face)
     warm.t0 = time.perf_counter()
     restore(clip[:, :traffic["window"]], cfg, d, warm, traffic,
             inputs.Noise(seed + 1, dev), dev)
     sync(dev)
     p = compare.plan(n, seed)
-    shape = (traffic["clips"], traffic["window"], config["output_size"],
-             config["output_size"])
-    host = dict(pin_memory=cuda)
-    buffers = {"x": {k: torch.empty(shape + (3,), **host) for k in p["x"]},
-               "out": {k: torch.empty(warm.out_shape, **host)
-                       for k in p["out"]}}
+    planned = {"x": p["x"], "out": p["out"], "weights": p["out"],
+               "crop": p["out"], "restored": p["out"], "parse": p["out"],
+               "init_parse": (0, n)}
+    slots = {kind: {k: torch.empty(warm.shapes[kind], pin_memory=cuda)
+                    for k in keys}
+             for kind, keys in planned.items() if kind in warm.shapes}
     window = Window(apply, seconds=seconds, min_calls=p["min_calls"],
-                    buffers=buffers, trace=trace)
+                    slots=slots, trace=trace, face=face)
     prof = contextlib.nullcontext()
     if trace:
         prof = torch.profiler.profile(
@@ -171,7 +270,7 @@ def run_window(config, traffic, seed, seconds, trace, device, t_start):
     # inside the window scan only what the window makes
     gc.collect()
     gc.freeze()
-    rec = {"plan": p, "buffers": buffers, "clip": clip}
+    rec = {"plan": p, "buffers": window.buffers, "clip": clip}
     with prof as profiler:
         start_ev = None
         window.t0 = time.perf_counter()
@@ -187,9 +286,9 @@ def run_window(config, traffic, seed, seconds, trace, device, t_start):
                memory_peak_bytes=(torch.cuda.max_memory_allocated()
                                   if cuda else 0))
     if trace:
-        rec["spans"] = call_spans(window.events, start_ev, calls, n)
+        rec["call_spans"] = call_spans(window.events, start_ev, calls, n)
         rec["profiler"] = profiler
-    del model, apply, window, warm
+    del model, apply, window, warm, face
     gc.unfreeze()
     gc.collect()
     if cuda:
@@ -242,12 +341,22 @@ def per_layer(summary, names) -> dict:
 
 def trace_summary(rec, config, traffic) -> dict:
     """What the per-layer readers read: the reduced trace, the calls'
-    spans, and the reference's count of one call at the cell's shapes."""
-    from . import roofline, trace
+    spans, the reference's count of one call at the cell's shapes, the
+    cell's ``config`` and ``traffic``, and, where the run recorded the
+    program's spans (``rec["span_records"]``: ``join.traced_window``'s
+    set-up and window records), their numbers under ``spans``
+    (``join.span_metrics``) and the join itself under ``attribution``."""
+    from . import join, roofline, trace
     n = steps_per_window(config)
-    summary = trace.reduce(trace.events_of(rec.pop("profiler")),
-                           rec["spans"]["calls_ms"], rec["window_s"], n)
-    summary.update(rec["spans"], steps=rec["calls"],
-                   windows=-(-rec["calls"] // n),
-                   **roofline.count_call(config, traffic))
+    ops, launches = join.events_of(rec.pop("profiler"))
+    summary = trace.reduce([op[:3] for op in ops],
+                           rec["call_spans"]["calls_ms"], rec["window_s"], n)
+    summary.update(rec["call_spans"], steps=rec["calls"],
+                   windows=-(-rec["calls"] // n), config=config,
+                   traffic=traffic, **roofline.count_call(config, traffic))
+    if "span_records" in rec:
+        setup, window = rec["span_records"]
+        att = join.attribute(ops, launches, window)
+        summary.update(attribution=att, spans=join.span_metrics(
+            att, join.setup_seconds(setup)))
     return summary

@@ -11,7 +11,10 @@ import math
 import numpy as np
 import torch
 
-WEIGHTS, CLIP, NOISE = 1, 2, 3
+WEIGHTS, CLIP, NOISE, FACE_WEIGHTS = 1, 2, 3, 4
+# the face prior's networks; each draws its weights from the draw of
+# FACE_WEIGHTS at its place here
+FACE_NETS = ("codeformer", "parsenet")
 
 
 def stream(seed: int, tag: int, index: int = 0) -> int:
@@ -40,13 +43,16 @@ def weight_scale(name: str, shape) -> tuple[float, float]:
     return 0.0, 0.02
 
 
-def fill_weights(model: torch.nn.Module, seed: int, device) -> None:
-    """Draw every parameter of ``model`` in one call on ``device``, in the
-    order of the sorted parameter names, and make the parameters views of
-    that one float32 buffer (a model built on ``meta`` gets them too)."""
+def fill_weights(model: torch.nn.Module, seed: int, device,
+                 tag: int = WEIGHTS, index: int = 0) -> None:
+    """Draw every parameter of ``model`` in one call on ``device`` from
+    draw ``index`` of stream ``tag`` (the denoiser's by default; each face
+    network has a draw of ``FACE_WEIGHTS``), in the order of the sorted
+    parameter names, and make the parameters views of that one float32
+    buffer (a model built on ``meta`` gets them too)."""
     params = sorted(model.named_parameters())
     total = sum(p.numel() for _, p in params)
-    gen = torch.Generator(device=device).manual_seed(stream(seed, WEIGHTS))
+    gen = torch.Generator(device=device).manual_seed(stream(seed, tag, index))
     flat = torch.randn(total, generator=gen, device=device)
     off = 0
     with torch.no_grad():

@@ -263,21 +263,26 @@ def parse(argv):
 def traced_window(config, traffic, seed, seconds, trace, device, t_start,
                   record=True):
     """``harness.run_window`` with the program's spans recorded from
-    before the model is built (none when not ``record``): the run's
-    record and the set-up's and the window's span records, split at the
+    before the model is built (none when not ``record``, or when the
+    program has no ``utils.spans``): the run's record, with the set-up's
+    and the window's span records under ``span_records``, split at the
     window's start (``t_start`` + its set-up on the host clock)."""
-    from flair_tpu_torch.utils import spans
     from . import harness
+    try:
+        from flair_tpu_torch.utils import spans
+    except ImportError:
+        spans = None
     offset = time.time_ns() - time.perf_counter_ns()
-    if record:
+    if record and spans is not None:
         spans.start()
     try:
         rec = harness.run_window(config, traffic, seed, seconds, trace,
                                  device, t_start)
     finally:
-        records = spans.stop()
+        records = spans.stop() if spans is not None else []
     t0_ns = int((t_start + rec["setup_s"]) * 1e9) + offset
-    return (rec, *split(records, t0_ns))
+    rec["span_records"] = split(records, t0_ns)
+    return rec
 
 
 def main(argv=None) -> int:
@@ -288,22 +293,21 @@ def main(argv=None) -> int:
     if not torch.cuda.is_available():
         print("flairbench.join: needs a CUDA card", file=sys.stderr)
         return 2
-    rec, setup_records, window = traced_window(
-        config, traffic, args.seed, args.seconds, True, "cuda", T_START,
-        record=bool(args.spans))
-    ops, launches = events_of(rec["profiler"])
+    rec = traced_window(config, traffic, args.seed, args.seconds, True,
+                        "cuda", T_START, record=bool(args.spans))
+    setup_records, window = rec["span_records"]
     summary = harness.trace_summary(rec, config, traffic)
     names = [m["name"] for m in bench["per_layer"]
              if cell["name"] in m.get("workloads", [cell["name"]])]
-    existing = harness.per_layer(summary, names)
-    att = attribute(ops, launches, window)
-    setup = setup_seconds(setup_records)
+    metrics = harness.per_layer(summary, names)
+    att = summary["attribution"]
     result = {"workload": args.workload, "seed": args.seed,
               "spans": bool(args.spans), "calls": rec["calls"],
               "window_s": rec["window_s"], "setup_s": rec["setup_s"],
-              "setup": setup, "records": len(setup_records) + len(window),
-              "metrics": existing, "span_metrics": span_metrics(att, setup),
-              "checks": checks(att, existing.get("unet_ms")),
+              "setup": setup_seconds(setup_records),
+              "records": len(setup_records) + len(window),
+              "metrics": metrics, "span_metrics": summary["spans"],
+              "checks": checks(att, metrics.get("unet_ms")),
               "attribution": summary_of(att)}
     print(table(att), file=sys.stderr)
     for k, v in result["checks"].items():

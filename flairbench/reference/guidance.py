@@ -1,8 +1,9 @@
 """The guided DDIM step of FLAIR, plain float32 with float64 tables: the
 respaced schedule, the data-consistency operators (SRConv for x8 / x16,
-the FFT null-space PseudoSR ×4 for gaussian) and the η = 0 update with the
-overlap pinning of a window after the first
-(guided_diffusion/gaussian_diffusion.py:423-517 of wustl-cig/FLAIR).
+the FFT null-space PseudoSR ×4 for gaussian), the face prior's fusion
+(``face.py``) and the η = 0 update with the overlap pinning of a window
+after the first (guided_diffusion/gaussian_diffusion.py:423-517 of
+wustl-cig/FLAIR).
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import os
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from . import face as face_ref
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
@@ -212,31 +215,51 @@ class PseudoSR:
 
 
 class Guidance:
-    """One task's respaced schedule and consistency operator."""
+    """One task's respaced schedule, consistency operator and, for a task
+    with a face prior, the fusion weights of its face window."""
 
     def __init__(self, task, steps, size, device):
         self.task = task
         self.acp, self.timestep_map, self.gammas = respaced(task, steps)
         self.op = (SRConv(size, 8, device) if task == "x8_bicubic"
                    else PseudoSR(device))
+        if task in face_ref.TASKS:
+            self.ws, self.tau = face_ref.window(task, len(self.acp))
+
+    def in_face_window(self, t) -> bool:
+        return hasattr(self, "tau") and self.tau <= t <= len(self.acp) - 1
 
     def start(self, init, noise):
         """x_T = q_sample(init, T−1, noise)."""
         a = float(self.acp[-1])
         return a ** 0.5 * init + (1 - a) ** 0.5 * noise
 
-    def update(self, x, out, t, y, pin_values=None):
-        """The guided η = 0 DDIM step at spaced step t: x0 from eps (the
-        first 3 channels of ``out``), clipped; x0 − γ_t·correction,
-        clipped; the first frames replaced by ``pin_values`` (B, k, H, W,
-        3); then x_{t−1}. x (B, T, H, W, 3), y (B·T, h, w, 3) in [-1, 1]."""
+    def x0(self, x, out, t, y):
+        """x0 from eps (the first 3 channels of ``out``), clipped; then
+        x0 − γ_t·correction, clipped. x (B, T, H, W, 3), y (B·T, h, w, 3)
+        in [-1, 1]."""
         a = float(self.acp[t])
-        a_prev = float(self.acp[t - 1]) if t > 0 else 1.0
         eps = out[..., :3]
         x0 = (x / a ** 0.5 - (1 / a - 1) ** 0.5 * eps).clamp(-1, 1)
         flat = x0.reshape(-1, *x0.shape[2:])
-        x0 = (x0 - float(self.gammas[t]) * self.op.correction(flat, y).reshape(
-            x0.shape)).clamp(-1, 1)
+        return (x0 - float(self.gammas[t]) * self.op.correction(
+            flat, y).reshape(x0.shape)).clamp(-1, 1)
+
+    def update(self, x, out, t, y, pin_values=None, face=None):
+        """The guided η = 0 DDIM step at spaced step t: ``x0``; in the face
+        window, with ``face`` = (restored faces (B·T, S, S, 3), their parse
+        logits or None, the (B·T, 2, 3) frame → face matrices), x0 ←
+        w_t·x0 + (1 − w_t)·clip(the faces pasted into x0); the first
+        frames replaced by ``pin_values`` (B, k, H, W, 3); then x_{t−1}."""
+        a = float(self.acp[t])
+        a_prev = float(self.acp[t - 1]) if t > 0 else 1.0
+        x0 = self.x0(x, out, t, y)
+        if face is not None and self.in_face_window(t):
+            restored, logits, mats = face
+            fused = face_ref.fuse(x0.reshape(-1, *x0.shape[2:]), restored,
+                                  face_ref.paste_mask(restored, logits), mats)
+            w = float(self.ws[t])
+            x0 = w * x0 + (1 - w) * fused.clamp(-1, 1).reshape(x0.shape)
         if pin_values is not None:
             x0 = torch.cat([pin_values, x0[:, pin_values.shape[1]:]], 1)
         eps = (x / a ** 0.5 - x0) / (1 / a - 1) ** 0.5

@@ -55,13 +55,13 @@ class LevelBlock(nn.Module):
             self.vsrpp = BasicVSRPP(cout, 5.0, deform_groups)
             self.vsrpp_gate = Gate(cout, emb)
 
-    def forward(self, x, emb, b, flows):
+    def forward(self, x, emb, b, flows, weights=None):
         x = self.res_block(x, emb, b)
         x = self.conv_3d_gate(x, self.conv_3d(x, emb, b), emb)
         if hasattr(self, "temp_attn"):
             x = self.temp_attn_gate(x, self.temp_attn(x, b), emb)
         if hasattr(self, "vsrpp"):
-            x = self.vsrpp_gate(x, self.vsrpp(x, b, flows), emb)
+            x = self.vsrpp_gate(x, self.vsrpp(x, b, flows, weights), emb)
         return x
 
 
@@ -142,8 +142,10 @@ class BicubicUNet(nn.Module):
             out[res] = (fwd, bwd) + second_order_flows(fwd, bwd)
         return out
 
-    def forward(self, x, noise_level, low_res, flows):
-        """x, low_res (B, T, H, W, 3); noise_level (B, T) → eps (B, T, H, W, 3)."""
+    def forward(self, x, noise_level, low_res, flows, weights=None):
+        """x, low_res (B, T, H, W, 3); noise_level (B, T) → eps (B, T, H, W,
+        3); ``weights`` (B, T, H, W, 1): the VSR++ gating of every level
+        (video_sample.py:427-444), none by default."""
         b, t, hh, ww = x.shape[:4]
         n = b * t
         emb = noise_level_embedding(noise_level.reshape(n), self.inner)
@@ -154,7 +156,8 @@ class BicubicUNet(nn.Module):
         feats, res, li = [h], self.image_size, 0
         for ind in range(len(self.mults)):
             for _ in range(self.res_blocks):
-                h = getattr(self, f"down_{li}")(h, emb, b, flows.get(res))
+                h = getattr(self, f"down_{li}")(h, emb, b, flows.get(res),
+                                                weights)
                 feats.append(h)
                 li += 1
             if ind != len(self.mults) - 1:
@@ -167,7 +170,7 @@ class BicubicUNet(nn.Module):
         for ind in reversed(range(len(self.mults))):
             for _ in range(self.res_blocks + 1):
                 h = getattr(self, f"up_{li}")(torch.cat([h, feats.pop()], 1),
-                                              emb, b, flows.get(res))
+                                              emb, b, flows.get(res), weights)
                 li += 1
             if ind >= 1:
                 h = getattr(self, f"upsample_{ind}")(

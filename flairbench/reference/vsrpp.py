@@ -178,9 +178,10 @@ class BasicVSRPP(nn.Module):
         self.reconstruction = Backbone(3 * c, c)
         self.conv_last = Conv2d(c, c, 1)
 
-    def branch(self, p, feats, extra, flow1, flow2, order):
+    def branch(self, p, feats, extra, flow1, flow2, order, weights=None):
         """flow1 / flow2: (B, T, 2, H, W), the branch's first- and
-        second-order flow at each frame."""
+        second-order flow at each frame; ``weights`` (B, T, 1, H, W) gate
+        each frame's propagated feature."""
         b, t = feats.shape[:2]
         out = [None] * t
         prop_n1 = prop_n2 = torch.zeros_like(feats[:, 0])
@@ -196,23 +197,32 @@ class BasicVSRPP(nn.Module):
                 prop = torch.zeros_like(prop_n1)
             inp = [feats[:, j]] + ([] if extra is None else [extra[:, j]])
             prop = prop + p.backbone(torch.cat(inp + [prop], dim=1))
+            if weights is not None:
+                prop = prop * weights[:, j]
             prop_n1, prop_n2 = prop, prop_n1
             out[j] = prop
         return torch.stack(out, 1)
 
-    def forward(self, hidden, b, flows):
+    def forward(self, hidden, b, flows, weights=None):
         """hidden (B·T, C, H, W); flows (fwd, bwd, fwd2, bwd2) with fwd / bwd
-        (B, T-1, 2, H, W) and fwd2 / bwd2 (B, T, 2, H, W)."""
+        (B, T-1, 2, H, W) and fwd2 / bwd2 (B, T, 2, H, W); ``weights``
+        (B, T, H', W', 1) gate the propagation in both branches (FLAIR's
+        background weights, unet.py:489), nearest-resized to H × W."""
         n, c, h, w = hidden.shape
         feats = hidden.reshape(b, n // b, c, h, w)
         fwd, bwd, fwd2, bwd2 = flows
         zero = torch.zeros_like(fwd[:, :1])
         t = n // b
+        if weights is not None:
+            weights = F.interpolate(
+                weights.reshape(n, *weights.shape[2:]).permute(0, 3, 1, 2),
+                size=(h, w), mode="nearest").reshape(b, t, 1, h, w)
         back = self.branch(self.backward_1, feats, None,
                            torch.cat([bwd, zero], 1), bwd2,
-                           range(t - 1, -1, -1))
+                           range(t - 1, -1, -1), weights)
         forw = self.branch(self.forward_1, feats, back,
-                           torch.cat([zero, fwd], 1), fwd2, range(t))
+                           torch.cat([zero, fwd], 1), fwd2, range(t),
+                           weights)
         hr = self.reconstruction(torch.cat([feats, back, forw], 2).reshape(
             n, 3 * c, h, w))
         return hidden + self.conv_last(hr)

@@ -69,17 +69,45 @@ def flash_bound_ms(bh, s, d, elt_bytes):
                                  "operations")
 
 
-def reference_class(config: dict):
-    module, cls = config["reference"].split(".")
+def reference_class(entry: dict):
+    """The frozen reference class that ``entry`` (a configuration, or a
+    face network of its ``face`` object) names as ``<module>.<class>`` of
+    ``flairbench.reference``."""
+    module, cls = entry["reference"].split(".")
     return getattr(importlib.import_module(
         f"flairbench.reference.{module}"), cls)
+
+
+def count_face(config: dict, frames: int):
+    """On ``meta``: the FLOPs of the reference face networks that the
+    configuration names (none named: 0), as (a denoiser call's mean share
+    of the face steps' CodeFormer and ParseNet on ``frames`` crops, a
+    window's ParseNet of its init frames)."""
+    from .inputs import FACE_NETS
+    from .reference import face
+    spec, s = config["face"], config["output_size"]
+    n = int(config["steps"][len("ddim"):])
+    _, tau = face.window(config["task"], n)
+    faces = torch.empty(frames, s, s, 3)
+    flops = {}
+    for name in FACE_NETS:
+        entry = spec.get(name)
+        if entry is None or not entry.get("reference"):
+            continue
+        net = reference_class(entry)(**entry["kwargs"])
+        with FlopCounterMode(display=False) as fc:
+            face.APPLY[name](net, faces)
+        flops[name] = fc.get_total_flops()
+    step = flops.get("codeformer", 0) + flops.get("parsenet", 0)
+    return step * (n - tau) / n, flops.get("parsenet", 0)
 
 
 def count_call(config: dict, traffic: dict) -> dict:
     """On the ``meta`` device, at the cell's shapes: the FLOPs of one
     window's flows (SPyNet, once a window) and of one denoiser call given
     them, counted by ``FlopCounterMode`` over the frozen reference, so the
-    count is the same whatever implements a layer; and the least time of
+    count is the same whatever implements a layer (with the face prior on,
+    plus ``count_face``'s); and the least time of
     one call's K1 and K2 launches (the reference's DCN and spatial
     attention sites, at the program's dtype)."""
     from .reference.nn import AttentionBlock
@@ -102,6 +130,10 @@ def count_call(config: dict, traffic: dict) -> dict:
         with FlopCounterMode(display=False) as fc:
             ref(x, cond, x, flows)
         call = fc.get_total_flops()
+        if config.get("face_prior"):
+            face_step, face_window = count_face(config, b * t)
+            call += face_step
+            window += face_window
     elt = torch.tensor([], dtype=getattr(torch, config["dtype"])).element_size()
     return {"flops_window": float(window), "flops_call": float(call),
             "k1_bound_ms": sum(dcn_bound_ms(h, cin, cout, elt, g)[0]

@@ -5,7 +5,9 @@
 
 from the root of a checkout, on a machine with as many CUDA cards as the
 cell asks for. ``--trace 0`` reports the cell's end-to-end metrics,
-``--trace 1`` its per-layer metrics from a traced window. Every run
+``--trace 1`` its per-layer metrics from a traced window, in which the
+program's own spans are recorded and joined to the trace
+(``flairbench.join``). Every run
 compares what its window produced with the frozen reference and prints
 each number compared beside its limit, last on standard error and under
 ``checks``, the last key of the result line on standard output.
@@ -44,15 +46,21 @@ def selected(entries, cell):
 def main(argv=None) -> int:
     args = parse(argv)
     import torch
-    from flairbench import compare, harness
+    from flairbench import compare, harness, join
     bench, cell, config, traffic = harness.load_cell(args.workload)
     if not torch.cuda.is_available() or torch.cuda.device_count() < cell["chips"]:
         print(f"flairbench: needs {cell['chips']} CUDA card(s), found "
               f"{torch.cuda.device_count() if torch.cuda.is_available() else 0}",
               file=sys.stderr)
         return 2
-    rec = harness.run_window(config, traffic, args.seed, args.seconds,
-                             bool(args.trace), "cuda", T_START)
+    if args.trace:
+        # the traced window records the program's spans, joined to the
+        # trace by launch for the span metrics
+        rec = join.traced_window(config, traffic, args.seed, args.seconds,
+                                 True, "cuda", T_START)
+    else:
+        rec = harness.run_window(config, traffic, args.seed, args.seconds,
+                                 False, "cuda", T_START)
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": cell["chips"],
               "memory_peak_bytes": rec["memory_peak_bytes"],

@@ -1,9 +1,16 @@
 """Small configurations of the two cells for the CPU tests: the goldens'
 x8 and gaussian model sizes at 64² output, four ddim steps, float32 (the
-program's plain path on the CPU), and the cells' own limits."""
+program's plain path on the CPU), and the cells' own limits; and the x8
+configuration with the face prior on, its networks the tiny ones of
+``flairbench/reference/tiny_face.py``, registered here as program models
+and named as their own reference."""
 
 import json
 import os
+
+from flair_tpu_torch.models.registry import register_model
+
+from flairbench.reference.tiny_face import TinyCodeFormer, TinyParseNet
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 CONFIGS = os.path.join(os.path.dirname(HERE), "configs")
@@ -36,3 +43,20 @@ BLUR = {"task": "gaussian", "input_size": 16, "output_size": 64,
 TRAFFIC = {"clips": 1, "frames": 12, "shift": 1.0, "window": 4,
            "overlap": 2, "warmup_calls": 2}
 SEED = 2 ** 31 + 12345
+
+register_model("bench_tiny_codeformer")(TinyCodeFormer)
+register_model("bench_tiny_parsenet")(TinyParseNet)
+# the x8 face prior at 64²: the chip's frame → face matrix with its
+# translation scaled to the size; the crop and the step held to the
+# step's limit
+X8_FACE = dict(
+    X8, face_prior=True,
+    face={"codeformer": {"model": "bench_tiny_codeformer",
+                         "kwargs": {"width": 8}, "wrapper": "wrap_codeformer",
+                         "reference": "tiny_face.TinyCodeFormer"},
+          "parsenet": {"model": "bench_tiny_parsenet",
+                       "kwargs": {"width": 8, "background": 1.0},
+                       "wrapper": "wrap_parsenet",
+                       "reference": "tiny_face.TinyParseNet"},
+          "matrix": [[1.1, 0.08, 1.5], [-0.08, 1.1, -1.125]]},
+    limits=dict(X8["limits"], face=3e-4))

@@ -1,6 +1,7 @@
 """Every file the benchmark reads is there and is found by its name in
-``BENCHMARK.json``; each configuration builds the program's model and the
-frozen reference with the same parameters by name and shape."""
+``BENCHMARK.json``; each configuration builds the program's model (and
+each face network that names a reference) and the frozen reference with
+the same parameters by name and shape."""
 
 import importlib
 import json
@@ -11,6 +12,7 @@ import pytest
 import torch
 
 from flairbench import harness
+from flairbench.inputs import FACE_NETS
 from flairbench.roofline import reference_class
 
 with open(os.path.join(harness.ROOT, "BENCHMARK.json")) as f:
@@ -22,8 +24,9 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 def test_cell_files_load(cell):
     _, entry, config, traffic = harness.load_cell(cell)
     assert entry["chips"] == 1
+    face = {"face"} if config.get("face_prior") else set()
     assert config["reduced"] == [] and config["limits"].keys() == {
-        "start", "eps", "step"}
+        "start", "eps", "step"} | face
     assert traffic["window"] > traffic["overlap"] >= 1
     # the clip outlasts any window: 20 windows of 25 calls
     windows = (traffic["frames"] - traffic["overlap"]) // (
@@ -53,11 +56,16 @@ def test_program_and_reference_share_parameters(config):
     from flair_tpu_torch.models.registry import get_model
     with open(os.path.join(harness.ROOT, config)) as f:
         cfg = json.load(f)
-    kwargs = {k: tuple(v) if isinstance(v, list) else v
-              for k, v in cfg["model_kwargs"].items()}
-    with torch.device("meta"):
-        prog = get_model(cfg["model"], **kwargs)
-        ref = reference_class(cfg)(**cfg["model_kwargs"])
-    shapes = [sorted((n, tuple(p.shape)) for n, p in m.named_parameters())
-              for m in (prog, ref)]
-    assert shapes[0] == shapes[1]
+    # (registry name, reference entry, keyword arguments)
+    nets = [(cfg["model"], cfg, cfg["model_kwargs"])]
+    if cfg.get("face_prior"):
+        nets += [(e["model"], e, e["kwargs"])
+                 for e in map(cfg["face"].get, FACE_NETS)
+                 if e is not None and e.get("reference")]
+    for model, entry, kwargs in nets:
+        with torch.device("meta"):
+            prog = get_model(model, **harness.model_kwargs(kwargs))
+            ref = reference_class(entry)(**kwargs)
+        shapes = [sorted((n, tuple(p.shape)) for n, p in m.named_parameters())
+                  for m in (prog, ref)]
+        assert shapes[0] == shapes[1], model

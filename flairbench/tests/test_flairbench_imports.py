@@ -24,7 +24,8 @@ HARNESS = ["flairbench.run", "flairbench.harness", "flairbench.compare",
            "flair_tpu_torch.ops.attention"]
 REFERENCE = ["flairbench.reference.nn", "flairbench.reference.vsrpp",
              "flairbench.reference.sr3", "flairbench.reference.adm",
-             "flairbench.reference.guidance", "flairbench.inputs"]
+             "flairbench.reference.guidance", "flairbench.reference.face",
+             "flairbench.reference.tiny_face", "flairbench.inputs"]
 
 
 def top_level_modules(modules):

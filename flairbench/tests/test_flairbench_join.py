@@ -109,9 +109,9 @@ def test_span_metrics_checks_and_table():
 
 @pytest.mark.parametrize("record", [True, False])
 def test_traced_window_splits_the_set_up_from_the_window(record):
-    rec, setup, window = join.traced_window(
-        X8, TRAFFIC, SEED, 0.0, False, "cpu", time.perf_counter(),
-        record=record)
+    rec = join.traced_window(X8, TRAFFIC, SEED, 0.0, False, "cpu",
+                             time.perf_counter(), record=record)
+    setup, window = rec["span_records"]
     if not record:
         assert setup == window == []
         return

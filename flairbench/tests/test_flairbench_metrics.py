@@ -45,6 +45,20 @@ def test_meta_count_at_the_cell_shapes(cell, tflop, k1, k2):
     assert (c["k1_sites"], c["k2_sites"]) == (k1, k2)
 
 
+def test_meta_count_adds_the_named_face_networks():
+    """The tiny face networks at the small x8 size: per 64² image the
+    restorer's two 3×3 convs 3 → 8 → 3 and the parser's 3 → 8 → 19;
+    both run on a window's 4 frames in 3 of its 4 steps (τ = 1), the
+    parser once more on its init frames."""
+    from flairbench_small import TRAFFIC, X8, X8_FACE
+    restorer = 2 * 64 * 64 * 9 * (3 * 8 + 8 * 3) * 4
+    parser = 2 * 64 * 64 * 9 * (3 * 8 + 8 * 19) * 4
+    on, off = (roofline.count_call(c, TRAFFIC) for c in (X8_FACE, X8))
+    assert on["flops_call"] - off["flops_call"] == pytest.approx(
+        (restorer + parser) * 3 / 4)
+    assert on["flops_window"] - off["flops_window"] == pytest.approx(parser)
+
+
 def test_trace_reduction_unions_and_names_gaps():
     ms = 1_000_000
     origin = 5_000 * ms                 # profiler clock at the first op
@@ -93,7 +107,15 @@ SUMMARY = {"steps": 50, "windows": 3, "window_s": 35.0, "busy_s": 33.25,
                        "cudnn_fprop": [8.0, 50000]},
            "classes": {"dcn_raw (K1)": 2.75, "elementwise": 10.0,
                        "convolution": 8.0},
-           "unet_ms": [600.0, 620.0], "update_ms": [10.0], "prep_ms": []}
+           "unet_ms": [600.0, 620.0], "update_ms": [10.0], "prep_ms": [],
+           "spans": {"unet_device_ms": 466.4, "resnet_ms": 33.3,
+                     "temporal_ms": 107.6, "vsrpp_ms": 308.3,
+                     "update_device_ms": 1.74, "prep_device_ms": 55.2,
+                     "model_build_s": 0.58, "kernel_load_s": 0.004}}
+# the span metrics, read from ``summary["spans"]``
+SPAN_METRICS = ("unet_device_ms", "resnet_ms", "temporal_ms", "vsrpp_ms",
+                "attention_ms", "update_device_ms", "prep_device_ms",
+                "model_build_s", "kernel_load_s")
 
 
 @pytest.mark.parametrize("name,value", [
@@ -101,7 +123,80 @@ SUMMARY = {"steps": 50, "windows": 3, "window_s": 35.0, "busy_s": 33.25,
     ("k1_roofline", 100 * 7.456 * 50 / 1e3 / 2.75), ("k2_roofline", None),
     ("glue_share", 100 * 10.0 / 20.75), ("unet_ms", 610.0),
     ("update_ms", 10.0), ("window_prep_ms", None),
-    ("step_mfu", 100 * (50 * 58.57e12 + 3 * 3.77e12) / 35.0 / 989e12)])
+    ("step_mfu", 100 * (50 * 58.57e12 + 3 * 3.77e12) / 35.0 / 989e12),
+    ("unet_device_ms", 466.4), ("resnet_ms", 33.3), ("temporal_ms", 107.6),
+    ("vsrpp_ms", 308.3), ("attention_ms", None), ("update_device_ms", 1.74),
+    ("prep_device_ms", 55.2), ("model_build_s", 0.58),
+    ("kernel_load_s", 0.004)])
 def test_reader(name, value):
     got = importlib.import_module(f"flairbench.metrics.{name}").read(SUMMARY)
     assert got == (None if value is None else pytest.approx(value))
+
+
+class KinetoEvent:
+    """A kineto event as ``join.events_of`` reads it."""
+
+    def __init__(self, name, start, end, corr, device):
+        self.args = name, start, end, corr, device
+
+    def device_type(self):
+        from torch._C._autograd import DeviceType
+        return DeviceType.CUDA if self.args[4] else DeviceType.CPU
+
+    def is_user_annotation(self):
+        return False
+
+    def name(self):
+        return self.args[0]
+
+    def start_ns(self):
+        return self.args[1]
+
+    def end_ns(self):
+        return self.args[2]
+
+    def correlation_id(self):
+        return self.args[3]
+
+
+class Profiler:
+    """A finished profiler holding ``events``."""
+
+    def __init__(self, events):
+        results = type("Results", (), {"events": lambda self: events})()
+        self.profiler = type("Kineto", (), {"kineto_results": results})()
+
+
+def traced_record(with_spans):
+    """A recorded traced window of the small x8 configuration: the join
+    test's kernels, launches and spans, one call, a set-up with a model
+    build of 4.5 s."""
+    from test_flairbench_join import LAUNCHES, OPS, RECORDS
+    events = [KinetoEvent(n, s, e, c, True) for n, s, e, c in OPS]
+    events += [KinetoEvent("cudaLaunchKernel", t, t + 1, c, False)
+               for c, t in LAUNCHES.items()]
+    rec = {"profiler": Profiler(events), "window_s": 0.2, "calls": 1,
+           "call_spans": {"calls_ms": [(20.0, 60.0)], "unet_ms": [40.0],
+                          "update_ms": [], "prep_ms": [20.0]}}
+    if with_spans:
+        rec["span_records"] = ([("model.build", -1, 0, 4_500_000_000)],
+                               RECORDS)
+    return rec
+
+
+@pytest.mark.parametrize("with_spans", [True, False],
+                         ids=["spans", "no_spans"])
+def test_trace_summary_carries_the_span_metrics(with_spans):
+    from flairbench_small import TRAFFIC, X8
+    t = harness.trace_summary(traced_record(with_spans), X8, TRAFFIC)
+    assert t["config"] is X8 and t["traffic"] is TRAFFIC
+    assert t["kernels"]["dcn_raw_bf16"] == [pytest.approx(0.01), 1]
+    got = harness.per_layer(t, SPAN_METRICS)
+    if not with_spans:
+        assert "spans" not in t and got == {}
+        return
+    # the join test's numbers: kernels by the span that launched them
+    assert got == pytest.approx({
+        "unet_device_ms": 24, "update_device_ms": 10, "prep_device_ms": 9,
+        "resnet_ms": 9, "vsrpp_ms": 10, "model_build_s": 4.5})
+    assert t["attribution"]["coverage"] == pytest.approx(1 - 10 / 53)

@@ -1,4 +1,5 @@
-"""Reduction of one traced window to what the per-layer metrics read:
+"""Reduction of one traced window (its device operations as
+``join.events_of`` gives them) to what the per-layer metrics read:
 device time by kernel and by class, launches, the busy union, and the
 idle gaps named by what the harness was driving.
 
@@ -13,16 +14,6 @@ from it."""
 from __future__ import annotations
 
 from .roofline import kernel_class
-
-
-def events_of(prof):
-    """Device operations of a finished profiler as (name, start_ns,
-    end_ns)."""
-    from torch._C._autograd import DeviceType
-    return [(e.name(), e.start_ns(), e.end_ns())
-            for e in prof.profiler.kineto_results.events()
-            if e.device_type() == DeviceType.CUDA
-            and not e.is_user_annotation()]
 
 
 def gap_label(mid_ms, calls, steps):
