@@ -21,18 +21,33 @@ and reads six numbers, each the worst frame's relative L2 gap:
 With the face prior on, the reference denoiser takes the VSR++ weights
 it works out from the program's ParseNet logits on the init frames, the
 reference step fuses the program's restored faces (FLAIR's paste,
-``reference/face.py``), and two more numbers are read:
+``reference/face.py``), and more numbers are read, each the worst over a
+window's recorded face calls:
 
-- ``face_w1`` / ``face_w2``: the worst of the gaps in a window's face
-  work: at each recorded call, the program's crop against the reference's
+- ``face_w1`` / ``face_w2``: the program's crop against the reference's
   crop of its own x0 (infinite where one side runs the face prior at a
-  step and the other does not), the program's VSR++ weights against the
-  reference's; and, where the configuration names reference face
-  networks, their outputs on the program's recorded inputs against the
-  program's.
+  step and the other does not), and the program's VSR++ weights against
+  the reference's;
+- where the configuration names a reference CodeFormer,
+  ``codes_w1`` / ``_w2``: the program's recorded code logits against the
+  reference's on the program's crop; and ``restored_w1`` / ``_w2``: the
+  program's restored faces against the reference's on the program's crop
+  with the program's codes (the argmax of its recorded logits, the first
+  maximal index as ``torch.argmax`` takes it). Between two sound
+  precisions the top two of 1 024 logits often lie closer than rounding,
+  so the two sides' own argmaxes differ in some tokens, and each flip
+  changes a patch of the face: compared on one set of codes, the logits
+  and the generator are judged and no flip decides;
+- where it names a reference ParseNet, ``parse_w1`` / ``_w2``: the
+  program's logits on its restored faces and on the init frames against
+  the reference's on the same inputs.
+
+The limit of each number is its kind's (``codes_w1`` → ``limits.codes``);
+``limit_kinds`` says which kinds a configuration needs.
 
 ``lower=True`` reads the control instead: the reference in the nearest
-precision below the configuration's, put in the program's place.
+precision below the configuration's, put in the program's place, the face
+networks on the program's inputs and codes.
 """
 
 from __future__ import annotations
@@ -65,8 +80,38 @@ def rel(a: torch.Tensor, r: torch.Tensor) -> float:
 
 
 def rel_images(a: torch.Tensor, r: torch.Tensor) -> float:
-    """``rel`` over (N, ...) tensors, one image a row."""
+    """``rel`` over (N, ...) tensors, one image a row; infinite where the
+    program's tensor ``a`` is missing or has another shape."""
+    if a is None or a.shape != r.shape:
+        return float("inf")
     return rel(a.reshape(1, len(a), -1), r.reshape(1, len(r), -1))
+
+
+def limit_kinds(config) -> set:
+    """The kinds of number a configuration is compared by: each needs
+    its limit under ``limits``."""
+    kinds = {"start", "eps", "step"}
+    if config.get("face_prior"):
+        spec = config["face"]
+        kinds.add("face")
+        if (spec.get("codeformer") or {}).get("reference"):
+            kinds |= {"codes", "restored"}
+        if (spec.get("parsenet") or {}).get("reference"):
+            kinds.add("parse")
+    return kinds
+
+
+def check_config(config, where: str) -> None:
+    """Raise where a configuration lacks a limit that its numbers need,
+    or names a reference CodeFormer without recording the program's code
+    logits (``record.codes``)."""
+    missing = limit_kinds(config) - set(config["limits"])
+    if missing:
+        raise ValueError(f"{where}: no limits for {sorted(missing)}")
+    if "codes" in limit_kinds(config) and "codes" not in config["face"][
+            "codeformer"].get("record", {}):
+        raise ValueError(f"{where}: a reference CodeFormer needs the "
+                         "program's code logits, record.codes")
 
 
 @contextlib.contextmanager
@@ -99,13 +144,15 @@ class FacePrior:
         for i, name in enumerate(FACE_NETS):
             entry = spec.get(name)
             if entry is not None and entry.get("reference"):
-                with torch.device("meta"):
+                # on the device: buffers (ParseNet's running statistics)
+                # keep the values they are built with
+                with torch.device(dev):
                     net = reference_class(entry)(**entry["kwargs"])
                 fill_weights(net, seed, dev, FACE_WEIGHTS, i)
                 self.nets[name] = net
         self.rec = {kind: {k: v.to(dev) for k, v in rec.get(kind, {}).items()}
-                    for kind in ("weights", "crop", "restored", "parse",
-                                 "init_parse")}
+                    for kind in ("weights", "crop", "restored", "codes",
+                                 "parse", "init_parse")}
 
     def weights(self, logits, shape):
         """FLAIR's VSR++ weights (video_sample.py:427-444) from ParseNet's
@@ -117,14 +164,44 @@ class FacePrior:
         w[logits.argmax(-1) == 0] = self.bg_weight
         return w.reshape(*shape[:4], 1)
 
-    def net(self, name, faces, lower):
+    def net(self, name, faces, lower, **kw):
         """The reference network ``name`` on the program's ``faces``, one
         precision lower for the control."""
         net = self.nets[name]
         set_precision(net, lower)
-        out = face_ref.APPLY[name](net, faces)
+        out = face_ref.APPLY[name](net, faces, **kw)
         set_precision(net, False)
         return out
+
+    def codeformer_gaps(self, crop, logits, restored, lower):
+        """(codes, restored) of one face call: the program's code logits
+        and restored faces, or the control's, against the reference on
+        the program's crop with the program's codes; infinite where the
+        recorded logits are missing or are not (faces, tokens, codes)."""
+        inf = float("inf")
+        net = self.nets["codeformer"]
+        if (logits is None or logits.dim() != 3 or len(logits) != len(crop)
+                or logits.shape[-1] != net.idx_pred.weight.shape[0]):
+            return inf, inf
+        codes = logits.argmax(-1)
+        try:
+            ref_out, ref_logits = self.net("codeformer", crop, False,
+                                           codes=codes)
+        except ValueError:       # not one code a latent token
+            return inf, inf
+        if lower:
+            restored, logits = self.net("codeformer", crop, True,
+                                        codes=codes)
+        return rel_images(logits, ref_logits), rel_images(restored, ref_out)
+
+    def parse_gap(self, faces, logits, lower):
+        """The program's ParseNet logits of ``faces``, or the control's,
+        against the reference's."""
+        if faces is None:
+            return float("inf")
+        ref = self.net("parsenet", faces, False)
+        return rel_images(self.net("parsenet", faces, True) if lower
+                          else logits, ref)
 
     def crop(self, x0):
         """The faces of (B, T, H, W, 3) frames, (B·T, S, S, 3)."""
@@ -194,8 +271,8 @@ def readings(config, traffic, seed, clip, rec, p, device, lower=False):
                 wts = face.weights(logits, init.shape)
                 if wts is not None:
                     kw["weights"] = wts
-                vals[f"face_w{w + 1}"] = face_gaps(
-                    face, g, x, out, p, w, s, init, y, logits, wts, lower)
+                vals.update(face_readings(
+                    face, g, x, out, p, w, s, init, y, logits, wts, lower))
             flows = ref.flows(rnn)
             eps = ref(x[s], cond(t), init, flows, **kw)
             side = out[s]
@@ -222,13 +299,19 @@ def readings(config, traffic, seed, clip, rec, p, device, lower=False):
     return vals
 
 
-def face_gaps(face, g, x, out, p, w, s, init, y, logits, wts, lower):
-    """``face_w<w + 1>``: the worst gap of window ``w``'s face work (the
-    module's docstring); the control's where ``lower``, on the same
-    program inputs."""
+def face_readings(face, g, x, out, p, w, s, init, y, logits, wts,
+                  lower) -> dict:
+    """Window ``w``'s face numbers (the module's docstring): each kind's
+    worst gap over the window's recorded face calls, 0 where the window
+    recorded none; the control's where ``lower``, on the same program
+    inputs."""
     inf = float("inf")
     rec, n = face.rec, len(g.acp)
-    gaps = [0.0]
+    gaps = {"face": [0.0]}
+    if "codeformer" in face.nets:
+        gaps.update(codes=[0.0], restored=[0.0])
+    if "parsenet" in face.nets:
+        gaps["parse"] = [0.0]
     if face.parser:
         if wts is None:          # the program parsed no init frames
             side = None
@@ -236,33 +319,34 @@ def face_gaps(face, g, x, out, p, w, s, init, y, logits, wts, lower):
             side = face.weights(logits.bfloat16(), init.shape)
         else:
             side = rec["weights"].get(s)
-        gaps.append(inf if side is None else rel(side, wts))
+        gaps["face"].append(inf if side is None else rel(side, wts))
     for k in (k for k in p["out"] if k // n == w):
         t = n - 1 - k % n
         crop = rec["crop"].get(k)
         if g.in_face_window(t) != (crop is not None):
-            gaps.append(inf)     # one side runs the face prior, one not
+            gaps["face"].append(inf)  # one side runs the face prior, one not
             continue
         if crop is None:
             continue
         ref_crop = face.crop(g.x0(x[k], out[k], t, y))
+        side = crop
         if lower:
-            crop = face.crop(g.x0(x[k].bfloat16(), out[k].bfloat16(), t,
+            side = face.crop(g.x0(x[k].bfloat16(), out[k].bfloat16(), t,
                                   y.bfloat16()))
-        gaps.append(rel_images(crop, ref_crop))
+        gaps["face"].append(rel_images(side, ref_crop))
         restored = rec["restored"].get(k)
-        for name, inp, got in (("codeformer", crop, restored),
-                               ("parsenet", restored, rec["parse"].get(k))):
-            if name in face.nets and inp is not None:
-                side = face.net(name, inp, True) if lower else got
-                gaps.append(inf if side is None else rel_images(
-                    side, face.net(name, inp, False)))
+        if "codeformer" in face.nets:
+            c, r = face.codeformer_gaps(crop, rec["codes"].get(k), restored,
+                                        lower)
+            gaps["codes"].append(c)
+            gaps["restored"].append(r)
+        if "parsenet" in face.nets:
+            gaps["parse"].append(face.parse_gap(
+                restored, rec["parse"].get(k), lower))
     if "parsenet" in face.nets:
-        frames = init.reshape(-1, *init.shape[2:])
-        side = face.net("parsenet", frames, True) if lower else logits
-        gaps.append(inf if side is None else rel_images(
-            side, face.net("parsenet", frames, False)))
-    return max(gaps)
+        gaps["parse"].append(face.parse_gap(
+            init.reshape(-1, *init.shape[2:]), logits, lower))
+    return {f"{kind}_w{w + 1}": max(v) for kind, v in gaps.items()}
 
 
 def verdict(vals: dict, limits: dict) -> dict:

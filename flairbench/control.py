@@ -5,7 +5,7 @@
 
 For each seed, one process-local run of the cell's timed path (set-up,
 warm-up, the window closed as soon as the recorded calls are in) and the
-six numbers of ``compare.readings``: the program against the reference
+numbers of ``compare.readings``: the program against the reference
 (the lower readings) and, for the control seeds, the control against the
 reference (the upper readings). One JSON line a seed on standard output.
 The benchmark's own runs never run this.

@@ -20,7 +20,9 @@ A configuration with ``"face_prior": true`` runs FLAIR's face prior as
 the CLI does, its networks named by the configuration's ``face`` object
 (``build_face``), with ``FixedFace`` in RetinaFace's place. The window
 then also records, at the planned calls, the VSR++ weights the denoiser
-receives and what enters and leaves the face networks.
+receives, what enters and leaves the face networks, and the outputs of
+the submodules that a network's ``record`` entry names (CodeFormer's code
+logits).
 """
 
 from __future__ import annotations
@@ -56,6 +58,7 @@ def load_cell(name: str):
     entry = next(c for c in bench["configs"] if c["name"] == cell["config"])
     with open(os.path.join(ROOT, entry["file"])) as f:
         config = json.load(f)
+    compare.check_config(config, entry["file"])
     with open(os.path.join(HERE, "workloads", cell["traffic"] + ".json")) as f:
         traffic = json.load(f)
     return bench, cell, config, traffic
@@ -74,11 +77,12 @@ class Window:
     ``slots``: {kind: {call: pinned host tensor}}, the planned copies;
     ``buffers`` holds those written, by kind and call: ``x`` entering a
     call, its ``out``, the VSR++ ``weights`` it received; with ``face``
-    (``build_face``'s helper and appliers), the ``crop`` entering
-    CodeFormer, CodeFormer's output (``restored``) and ParseNet's logits
-    on it (``parse``) in the update after a call, and ParseNet's logits
-    on a window's init frames (``init_parse``), keyed by the window's
-    first call. ``shapes`` keeps each kind's last shape."""
+    (``build_face``'s ``Face``), the ``crop`` entering CodeFormer,
+    CodeFormer's output (``restored``), its code logits (``codes``, by
+    the configuration's ``record``) and ParseNet's logits on its output
+    (``parse``) in the update after a call, and ParseNet's logits on a
+    window's init frames (``init_parse``), keyed by the window's first
+    call. ``shapes`` keeps each kind's last shape."""
 
     def __init__(self, apply, *, seconds=0.0, min_calls=0, slots=None,
                  trace=False, face=None):
@@ -91,6 +95,8 @@ class Window:
         self.trace, self.events = trace, []
         self.calls, self.t0 = 0, None
         self.face, self.face_call = face, None
+        if face is not None:
+            face.window = self
 
     def record(self, kind, k, v):
         self.shapes[kind] = tuple(v.shape)
@@ -123,14 +129,14 @@ class Window:
         """CodeFormer in the update after the last call."""
         k = self.face_call = self.calls - 1
         self.record("crop", k, faces)
-        out = self.face[1](faces)
+        out = self.face.codeformer(faces)
         self.record("restored", k, out)
         return out
 
     def parsenet(self, faces):
         """ParseNet on the faces CodeFormer just restored, or else on the
         init frames of the window whose first call is next."""
-        logits = self.face[2](faces)
+        logits = self.face.parsenet(faces)
         if self.face_call is None:
             self.record("init_parse", self.calls, logits)
         else:
@@ -142,9 +148,9 @@ class Window:
         """``restore_video``'s face keywords: none with the prior off."""
         if self.face is None:
             return {}
-        return {"face_helper": self.face[0],
+        return {"face_helper": self.face.helper,
                 "codeformer_apply": self.codeformer,
-                "parsenet_apply": self.face[2] and self.parsenet}
+                "parsenet_apply": self.face.parsenet and self.parsenet}
 
 
 class FixedFace:
@@ -165,28 +171,55 @@ def model_kwargs(kwargs):
             for k, v in kwargs.items()}
 
 
-def build_face(config, seed, device):
-    """(``FixedFace``, codeformer_apply, parsenet_apply or None): each
-    network of the configuration's ``face`` object by its registry name,
-    keyword arguments and port wrapper, in the configuration's dtype, its
-    weights drawn from a stream of its own."""
+@dataclasses.dataclass
+class Face:
+    """The face prior as a window drives it: RetinaFace's stand-in, the
+    networks' appliers (``parsenet`` None where the configuration names
+    none), and the ``Window`` that the networks' recording hooks write
+    to."""
+    helper: FixedFace
+    codeformer: object
+    parsenet: object = None
+    window: object = None
+
+    def recorder(self, kind):
+        """A forward hook that records a submodule's output as ``kind``
+        under the window's face call (none outside a face call, as in
+        ParseNet's pass over the init frames)."""
+        def hook(module, args, out):
+            w = self.window
+            if w is not None and w.face_call is not None:
+                w.record(kind, w.face_call, out)
+        return hook
+
+
+def build_face(config, seed, device) -> Face:
+    """Each network of the configuration's ``face`` object by its
+    registry name, keyword arguments and port wrapper, in the
+    configuration's dtype, its weights drawn from a stream of its own;
+    a forward hook on each submodule that its ``record`` entry names
+    ({kind: submodule}), through the wrapper's ``.model``."""
     from flair_tpu_torch.models.registry import get_model
     from flair_tpu_torch.pipeline import wrappers
     spec = config["face"]
-    out = [FixedFace(spec["matrix"])]
+    nets, hooks = [], []
     for i, name in enumerate(inputs.FACE_NETS):
         entry = spec.get(name)
         if entry is None:
-            out.append(None)
+            nets.append(None)
             continue
         with torch.device(device):
             net = get_model(entry["model"],
                             dtype=getattr(torch, config["dtype"]),
                             **model_kwargs(entry["kwargs"]))
         inputs.fill_weights(net, seed, device, inputs.FACE_WEIGHTS, i)
-        out.append(getattr(wrappers, entry["wrapper"])(
-            net.to(device).eval()))
-    return tuple(out)
+        nets.append(getattr(wrappers, entry["wrapper"])(net.to(device).eval()))
+        hooks += [(nets[-1].model.get_submodule(sub), kind)
+                  for kind, sub in entry.get("record", {}).items()]
+    face = Face(FixedFace(spec["matrix"]), *nets)
+    for module, kind in hooks:
+        module.register_forward_hook(face.recorder(kind))
+    return face
 
 
 def build_program(config, seed, device):
@@ -253,8 +286,8 @@ def run_window(config, traffic, seed, seconds, trace, device, t_start):
     sync(dev)
     p = compare.plan(n, seed)
     planned = {"x": p["x"], "out": p["out"], "weights": p["out"],
-               "crop": p["out"], "restored": p["out"], "parse": p["out"],
-               "init_parse": (0, n)}
+               "crop": p["out"], "restored": p["out"], "codes": p["out"],
+               "parse": p["out"], "init_parse": (0, n)}
     slots = {kind: {k: torch.empty(warm.shapes[kind], pin_memory=cuda)
                     for k in keys}
              for kind, keys in planned.items() if kind in warm.shapes}

@@ -144,11 +144,14 @@ def fuse(frames, restored, mask, mats):
     return frames * (1 - inv_mask) + face * inv_mask
 
 
-def codeformer(net, faces):
+def codeformer(net, faces, codes=None):
     """A CodeFormer-like network on NHWC faces, applied as the demo does
-    (w = 1, AdaIN: video_sample.py:450-452)."""
-    out = net(faces.permute(0, 3, 1, 2), w=1.0, adain=True)[0]
-    return out.permute(0, 2, 3, 1)
+    (w = 1, AdaIN: video_sample.py:450-452): (restored faces, code
+    logits). ``codes`` (N, L), where given, replace the network's own
+    argmax."""
+    out, logits, _ = net(faces.permute(0, 3, 1, 2), w=1.0, adain=True,
+                         codes=codes)
+    return out.permute(0, 2, 3, 1), logits
 
 
 def parse(net, faces):

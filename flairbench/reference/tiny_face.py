@@ -11,22 +11,43 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from .nn import Conv2d
+from .codeformer import Codebook, adaptive_instance_norm
+from .nn import Conv2d, Dense
 
 
 class TinyCodeFormer(nn.Module):
-    """x + 2·conv(silu(conv x)): restored faces that leave [-1, 1] where
-    the paste's clamps matter. ``forward(x, w, adain)`` → (out, None,
-    None), NCHW."""
+    """CodeFormer's code path at a tiny size, NCHW: features
+    f = silu(conv x), a code head ``idx_pred`` that gives each pixel's
+    logits over the ``codes``-entry codebook ``quantize.embedding``, their
+    argmax (or the ``codes`` given), the lookup, AdaIN of the looked-up
+    codes to f, and x + 2·conv(·): restored faces that leave [-1, 1]
+    where the paste's clamps matter, and codes that a lower precision
+    flips. ``forward(x, w, adain, codes)`` → (out, logits (N, H·W,
+    codes), f)."""
 
-    def __init__(self, width=8, dtype=torch.float32):
+    def __init__(self, width=8, codes=16, dtype=torch.float32):
         super().__init__()
         self.conv_in = Conv2d(3, width)
+        self.idx_pred = Dense(width, codes, bias=False)
+        self.quantize = Codebook(codes, width)
         self.conv_out = Conv2d(width, 3)
 
-    def forward(self, x, w=0.0, adain=False):
+    def lookup(self, codes):
+        return self.quantize.lookup(codes)
+
+    def forward(self, x, w=0.0, adain=False, codes=None):
         x = x.float()
-        return x + 2 * self.conv_out(F.silu(self.conv_in(x))), None, None
+        feat = F.silu(self.conv_in(x))
+        logits = self.idx_pred(feat.flatten(2).transpose(1, 2))
+        if codes is None:
+            codes = logits.argmax(-1)
+        elif codes.shape != logits.shape[:-1]:
+            raise ValueError(f"codes {tuple(codes.shape)} for logits "
+                             f"{tuple(logits.shape)}")
+        quant = self.lookup(codes).transpose(1, 2).reshape(feat.shape)
+        if adain:
+            quant = adaptive_instance_norm(quant, feat)
+        return x + 2 * self.conv_out(quant), logits, feat
 
 
 class TinyParseNet(nn.Module):

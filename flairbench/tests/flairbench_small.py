@@ -3,13 +3,15 @@ x8 and gaussian model sizes at 64² output, four ddim steps, float32 (the
 program's plain path on the CPU), and the cells' own limits; and the x8
 configuration with the face prior on, its networks the tiny ones of
 ``flairbench/reference/tiny_face.py``, registered here as program models
-and named as their own reference."""
+(the CodeFormer also as a bf16 program) and named as their own
+reference."""
 
 import json
 import os
 
 from flair_tpu_torch.models.registry import register_model
 
+from flairbench.reference.nn import Layer, round_bf16
 from flairbench.reference.tiny_face import TinyCodeFormer, TinyParseNet
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -44,19 +46,45 @@ TRAFFIC = {"clips": 1, "frames": 12, "shift": 1.0, "window": 4,
            "overlap": 2, "warmup_calls": 2}
 SEED = 2 ** 31 + 12345
 
-register_model("bench_tiny_codeformer")(TinyCodeFormer)
+
+
+class ProgramTinyCodeFormer(TinyCodeFormer):
+    """The tiny CodeFormer as the program runs it: the reference's class,
+    apart so that a test can plant a fault in the program alone."""
+
+
+class BF16TinyCodeFormer(ProgramTinyCodeFormer):
+    """The tiny CodeFormer computing as a bf16 program: every product's
+    operands rounded to bfloat16, its code logits too."""
+
+    def __init__(self, **kw):
+        super().__init__(**kw)
+        for m in self.modules():
+            if isinstance(m, Layer):
+                m.rounding = round_bf16
+
+    def forward(self, x, w=0.0, adain=False, codes=None):
+        return super().forward(round_bf16(x), w, adain, codes)
+
+
+register_model("bench_tiny_codeformer")(ProgramTinyCodeFormer)
+register_model("bench_tiny_codeformer_bf16")(BF16TinyCodeFormer)
 register_model("bench_tiny_parsenet")(TinyParseNet)
 # the x8 face prior at 64²: the chip's frame → face matrix with its
 # translation scaled to the size; the crop and the step held to the
-# step's limit
+# step's limit, the networks' numbers to limits between the bf16 tiny
+# CodeFormer's readings and the control's
 X8_FACE = dict(
     X8, face_prior=True,
     face={"codeformer": {"model": "bench_tiny_codeformer",
-                         "kwargs": {"width": 8}, "wrapper": "wrap_codeformer",
-                         "reference": "tiny_face.TinyCodeFormer"},
+                         "kwargs": {"width": 8, "codes": 16},
+                         "wrapper": "wrap_codeformer",
+                         "reference": "tiny_face.TinyCodeFormer",
+                         "record": {"codes": "idx_pred"}},
           "parsenet": {"model": "bench_tiny_parsenet",
                        "kwargs": {"width": 8, "background": 1.0},
                        "wrapper": "wrap_parsenet",
                        "reference": "tiny_face.TinyParseNet"},
           "matrix": [[1.1, 0.08, 1.5], [-0.08, 1.1, -1.125]]},
-    limits=dict(X8["limits"], face=3e-4))
+    limits=dict(X8["limits"], face=3e-4, codes=1e-2, restored=1e-2,
+                parse=1e-2))

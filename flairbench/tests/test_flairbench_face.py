@@ -1,10 +1,14 @@
 """The face prior through the harness on the CPU, at the small x8 size with
 the tiny face networks (``flairbench_small.X8_FACE``): the program and
 the frozen reference agree within the limits; the control and each fault
-of the face work, planted underneath, fail at least one limit; a dropped
-VSR++ gating moves eps; and with the face prior off the harness calls
-``restore_video`` and reads the six numbers exactly as before."""
+of the face work, planted underneath, fail at least one limit; a bf16
+CodeFormer that flips codes passes the code and restored numbers, which
+a comparison of each side's own codes would not; each fault of the code
+path fails its number; a dropped VSR++ gating moves eps; and with the
+face prior off the harness calls ``restore_video`` and reads the six
+numbers exactly as before."""
 
+import copy
 import time
 
 import pytest
@@ -14,11 +18,13 @@ import torch.nn.functional as F
 from flairbench import compare, harness, inputs
 from flairbench.reference import face as face_ref
 from flairbench.reference import vsrpp as ref_vsrpp
+from flairbench.reference.tiny_face import TinyCodeFormer
 from flair_tpu_torch.diffusion import sampler
 from flair_tpu_torch.face import helper
 from flair_tpu_torch.pipeline import video
 
-from flairbench_small import BLUR, SEED, TRAFFIC, X8, X8_FACE
+from flairbench_small import (BLUR, SEED, TRAFFIC, X8, X8_FACE,
+                              ProgramTinyCodeFormer)
 
 # a seed whose drawn call s has w_t < 1 at its step, so that the fusion
 # is part of step_w1 (window 2's compared step has w_t = 1)
@@ -58,13 +64,16 @@ def test_reference_matches_program_with_the_face_prior(sound):
     # the face runs in the updates of steps tau..n-1, the parse of the
     # init frames before each window's first call
     assert sorted(b["crop"]) == sorted(b["restored"]) == sorted(b["parse"]) \
-        == [s, n]
+        == sorted(b["codes"]) == [s, n]
+    # the code logits of each face: (faces, tokens, codes)
+    assert b["codes"][s].shape == (TRAFFIC["window"], 64 * 64, 16)
     assert sorted(b["init_parse"]) == [0, n]
     assert sorted(b["weights"]) == sorted(rec["plan"]["out"])
     # the tiny parser parses every pixel as background: weights 0.93
     assert all(bool((w < 1).all()) for w in b["weights"].values())
     assert sorted(vals) == sorted(
-        f"{k}_w{w}" for k in ("start", "eps", "face", "step") for w in (1, 2))
+        f"{k}_w{w}" for k in ("start", "eps", "face", "codes", "restored",
+                              "parse", "step") for w in (1, 2))
     assert max(vals.values()) < 1e-4, vals
     assert not failed(X8_FACE, vals)
 
@@ -73,7 +82,98 @@ def test_control_fails_the_face_limits(sound):
     rec, _ = sound
     low = compare.readings(X8_FACE, TRAFFIC, FACE_SEED, rec["clip"],
                            rec["buffers"], rec["plan"], "cpu", lower=True)
-    assert {"face_w1", "eps_w1"} <= set(failed(X8_FACE, low)), low
+    assert {f"{k}_w{w}" for k in ("face", "eps", "codes", "restored",
+                                   "parse") for w in (1, 2)} <= set(
+        failed(X8_FACE, low)), low
+
+
+def own_codes_gap(config, rec, seed=FACE_SEED):
+    """The comparison as it stood before the code logits were recorded:
+    the program's restored faces against the reference CodeFormer on
+    the program's crop with the reference's own codes; and the codes
+    that the two sides' argmaxes choose differently."""
+    prior = compare.FacePrior(config, seed, rec["buffers"],
+                              TRAFFIC["window"], torch.device("cpu"))
+    gaps, flips = [], 0
+    with torch.no_grad():
+        for k, crop in prior.rec["crop"].items():
+            out, logits = prior.net("codeformer", crop, False)
+            gaps.append(compare.rel_images(prior.rec["restored"][k], out))
+            flips += int((logits.argmax(-1)
+                          != prior.rec["codes"][k].argmax(-1)).sum())
+    return max(gaps), flips
+
+
+def test_bf16_codes_flip_and_pass():
+    """A CodeFormer in bf16 chooses other codes than float32 for some
+    tokens; compared on its own codes it passes, compared on each side's
+    own codes (the earlier reading) it would fail ``restored``."""
+    config = copy.deepcopy(X8_FACE)
+    config["face"]["codeformer"]["model"] = "bench_tiny_codeformer_bf16"
+    rec, vals = run(config)
+    assert not failed(config, vals), vals
+    own, flips = own_codes_gap(config, rec)
+    assert flips >= 1
+    assert own > config["limits"]["restored"], own
+
+
+def codes_shifted(monkeypatch):
+    """The generator gets the next code after the argmax."""
+    monkeypatch.setattr(ProgramTinyCodeFormer, "lookup",
+                        lambda self, c: TinyCodeFormer.lookup(
+                            self, (c + 1) % len(self.quantize.embedding)))
+
+
+def adain_left_out(monkeypatch):
+    def forward(self, x, w=0.0, adain=False, codes=None):
+        return TinyCodeFormer.forward(self, x, w, False, codes)
+    monkeypatch.setattr(ProgramTinyCodeFormer, "forward", forward)
+
+
+def head_scaled(monkeypatch):
+    """The code head's logits 1.1 times what they should be (the codes,
+    their argmax, unchanged)."""
+    init = ProgramTinyCodeFormer.__init__
+
+    def __init__(self, **kw):
+        init(self, **kw)
+        self.idx_pred.register_forward_hook(lambda m, a, out: 1.1 * out)
+    monkeypatch.setattr(ProgramTinyCodeFormer, "__init__", __init__)
+
+
+def hook_on_the_wrong_submodule(config):
+    config["face"]["codeformer"]["record"] = {"codes": "conv_in"}
+
+
+@pytest.mark.parametrize("plant,number", [
+    (codes_shifted, "restored"), (adain_left_out, "restored"),
+    (head_scaled, "codes"), (hook_on_the_wrong_submodule, "codes")],
+    ids=["codes_shifted", "adain_left_out", "head_scaled",
+         "hook_on_the_wrong_submodule"])
+def test_planted_code_fault_fails_its_number(plant, number, monkeypatch):
+    config = copy.deepcopy(X8_FACE)
+    if plant is hook_on_the_wrong_submodule:
+        plant(config)
+    else:
+        plant(monkeypatch)
+    _, vals = run(config)
+    assert {f"{number}_w1", f"{number}_w2"} <= set(failed(config, vals)), \
+        vals
+
+
+@pytest.mark.parametrize("drop", [("limits", "codes"),
+                                  ("limits", "parse"),
+                                  ("record", "codes")],
+                         ids=["limit_codes", "limit_parse", "record"])
+def test_config_without_what_its_numbers_need_fails(drop):
+    config = copy.deepcopy(X8_FACE)
+    compare.check_config(config, "x8_face")
+    where, key = drop
+    holder = (config if where == "limits"
+              else config["face"]["codeformer"])[where]
+    del holder[key]
+    with pytest.raises(ValueError):
+        compare.check_config(config, "x8_face")
 
 
 def mask_unblurred(monkeypatch):

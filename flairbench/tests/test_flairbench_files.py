@@ -1,7 +1,8 @@
 """Every file the benchmark reads is there and is found by its name in
 ``BENCHMARK.json``; each configuration builds the program's model (and
 each face network that names a reference) and the frozen reference with
-the same parameters by name and shape."""
+the same parameters by name and shape, and names submodules to record
+that the program's network has."""
 
 import importlib
 import json
@@ -11,7 +12,7 @@ import re
 import pytest
 import torch
 
-from flairbench import harness
+from flairbench import compare, harness
 from flairbench.inputs import FACE_NETS
 from flairbench.roofline import reference_class
 
@@ -24,9 +25,13 @@ NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
 def test_cell_files_load(cell):
     _, entry, config, traffic = harness.load_cell(cell)
     assert entry["chips"] == 1
-    face = {"face"} if config.get("face_prior") else set()
-    assert config["reduced"] == [] and config["limits"].keys() == {
-        "start", "eps", "step"} | face
+    # a limit for each kind of number the configuration is compared by:
+    # start, eps, step; face with the face prior on; codes and restored
+    # with a reference CodeFormer (and its record.codes), parse with a
+    # reference ParseNet
+    compare.check_config(config, cell)
+    assert config["reduced"] == [] and config["limits"].keys() == \
+        compare.limit_kinds(config)
     assert traffic["window"] > traffic["overlap"] >= 1
     # the clip outlasts any window: 20 windows of 25 calls
     windows = (traffic["frames"] - traffic["overlap"]) // (
@@ -69,3 +74,6 @@ def test_program_and_reference_share_parameters(config):
         shapes = [sorted((n, tuple(p.shape)) for n, p in m.named_parameters())
                   for m in (prog, ref)]
         assert shapes[0] == shapes[1], model
+        # each submodule whose output the window records
+        for sub in entry.get("record", {}).values():
+            prog.get_submodule(sub)

@@ -25,7 +25,9 @@ HARNESS = ["flairbench.run", "flairbench.harness", "flairbench.compare",
 REFERENCE = ["flairbench.reference.nn", "flairbench.reference.vsrpp",
              "flairbench.reference.sr3", "flairbench.reference.adm",
              "flairbench.reference.guidance", "flairbench.reference.face",
-             "flairbench.reference.tiny_face", "flairbench.inputs"]
+             "flairbench.reference.tiny_face",
+             "flairbench.reference.codeformer",
+             "flairbench.reference.parsenet", "flairbench.inputs"]
 
 
 def top_level_modules(modules):

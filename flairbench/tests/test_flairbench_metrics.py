@@ -47,11 +47,12 @@ def test_meta_count_at_the_cell_shapes(cell, tflop, k1, k2):
 
 def test_meta_count_adds_the_named_face_networks():
     """The tiny face networks at the small x8 size: per 64² image the
-    restorer's two 3×3 convs 3 → 8 → 3 and the parser's 3 → 8 → 19;
-    both run on a window's 4 frames in 3 of its 4 steps (τ = 1), the
-    parser once more on its init frames."""
+    restorer's two 3×3 convs 3 → 8 → 3 and its code head 8 → 16 a
+    pixel, and the parser's 3 → 8 → 19; both run on a window's 4 frames
+    in 3 of its 4 steps (τ = 1), the parser once more on its init
+    frames."""
     from flairbench_small import TRAFFIC, X8, X8_FACE
-    restorer = 2 * 64 * 64 * 9 * (3 * 8 + 8 * 3) * 4
+    restorer = 2 * 64 * 64 * (9 * (3 * 8 + 8 * 3) + 8 * 16) * 4
     parser = 2 * 64 * 64 * 9 * (3 * 8 + 8 * 19) * 4
     on, off = (roofline.count_call(c, TRAFFIC) for c in (X8_FACE, X8))
     assert on["flops_call"] - off["flops_call"] == pytest.approx(
