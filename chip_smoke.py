@@ -58,6 +58,14 @@ Phases, one JSON line each (a record per shape for the kernels):
                float32, timed beside the plain composition in bf16 (the
                models' old sequence of about ten passes), with its bound
                (3 S: x read twice, y written once, at 3.35 TB/s)
+  kernel_vsrpp csrc/vsrpp_step.cu (ops/vsrpp_step: BasicVSR++'s per-frame
+               glue) at the main path's VSRPP_SHAPES, bf16, and DAVSRNet's
+               float32 width: the warp of the hidden pair, the bias passes
+               after each conv (the offset head's 27·G channels included)
+               and the gated tail, each against its plain version in
+               float32, one launch a call, timed beside the plain
+               composition in the working dtype and the bound (bytes read
+               and written once at 3.35 TB/s)
   slice_small  the x8 test configuration on cuda (kernel) vs cpu (plain)
   slice_small_blur  the gaussian and jpeg test configurations (goldens'
                widths, 32-channel heads) on cuda (both kernels) vs cpu;
@@ -98,7 +106,10 @@ Phases, one JSON line each (a record per shape for the kernels):
   davsr_full   DAVSRNet at the registry defaults (f32, G = 8) on a 3-frame
                64² clip → 15 frames at 256²: K1 launches held (112), ms a
                forward, peak, output finite
-  slice_full   full-width BicubicUNet, 13-frame 64² clip → 512², ddim25
+  slice_full   full-width BicubicUNet, 13-frame 64² clip → 512², ddim25;
+               in every slice_full* and training phase the BasicVSR++
+               step kernels' launches are held to VSR++ calls (each remat
+               recompute a call) × vsrpp_expected
   slice_full_int8  slice_full again with FLAIR_DCN_INT8=1: the same model,
                clip and noise through K1's int8 instance (5 400 int8
                launches, no bf16 one), ms a step beside slice_full's, peak,
@@ -218,6 +229,7 @@ from flair_tpu_torch.operators import SuperResolution
 from flair_tpu_torch.ops.attention import dot_product_attention, flash_attention
 from flair_tpu_torch.ops.dcn import deform_conv2d_raw
 from flair_tpu_torch.ops.norms import group_norm_act, group_norm_act_plain
+from flair_tpu_torch.ops import vsrpp_step
 from flair_tpu_torch.models.common import GroupNorm32
 from flair_tpu_torch.ops.deform import (
     deform_conv2d_raw_plain, quantize_values)
@@ -226,8 +238,8 @@ from flair_tpu_torch.parallel import (
 from flair_tpu_torch.pipeline import video
 from flair_tpu_torch.tools import probe_int8
 from flair_tpu_torch.pipeline.video import (
-    TASK_CONFIGS, init_from_degraded, restore_video, rnn_input_for, scale_tau,
-    window_slices)
+    FRAME_SLICE_LEN, TASK_CONFIGS, init_from_degraded, restore_video,
+    rnn_input_for, scale_tau, window_slices)
 from flair_tpu_torch.pipeline.wrappers import (
     wrap_bicubic_model, wrap_bicubic_train, wrap_blur_model, wrap_blur_train,
     wrap_codeformer, wrap_parsenet)
@@ -240,7 +252,7 @@ from flair_tpu_torch.utils.convert import (
 from flair_tpu_torch.utils.png import read_png, write_png
 
 ALL_PHASES = ("device", "build", "kernel_dcn", "kernel_flash",
-              "kernel_probe", "kernel_norm", "slice_small",
+              "kernel_probe", "kernel_norm", "kernel_vsrpp", "slice_small",
               "slice_small_blur", "slice_small_face", "slice_small_train",
               "slice_small_interp", "train_full", "train_full_blur",
               "interp_full", "davsr_full", "slice_full", "slice_full_int8",
@@ -389,6 +401,13 @@ DCN_PER_STEP = {"slice_full": 108, "slice_full_int8": 108,
 NORM_SHAPES = ((512, 64, 16), (512, 192, 16), (32, 1024, 16),
                (32, 2048, 16))
 NORM_TOL_REL = 1e-2
+# kernel_vsrpp: (H = W, C, dtype, G) of one VSR++ frame, B = 1: the main
+# path's two levels (SR3 and ADM alike: 64 channels at 512², 128 at 256²,
+# 16 deform groups), then DAVSRNet's float32 alignment width (G = 8); max
+# error over the largest |output| against the plain version in float32
+VSRPP_SHAPES = ((512, 64, torch.bfloat16, 16), (256, 128, torch.bfloat16, 16),
+                (256, 64, torch.float32, 8))
+VSRPP_TOL_REL = 1e-2
 FLASH_PER_STEP = {"slice_full": 0, "slice_full_int8": 0,
                   "slice_full_gaussian": 16,
                   "slice_full_face": 0, "cli_x8": 0, "cli_jpeg": 16}
@@ -1460,6 +1479,7 @@ def small_train_step(device):
 
     saved = deform_conv2d_raw.launches, group_norm_act.launches
     deform_conv2d_raw.launches = group_norm_act.launches = 0
+    reset_vsrpp_launches()
     calls, hooks = count_norm_calls(model)
     state, met = make_train_step(d, wrap_bicubic_train(d, model), cfg)(
         state, {"x_start": dev(x0), "low_res_input": dev(low)},
@@ -1467,7 +1487,7 @@ def small_train_step(device):
     for h in hooks:
         h.remove()
     launches = {"dcn_raw": deform_conv2d_raw.launches,
-                "group_norm": group_norm_act.launches}
+                "group_norm": group_norm_act.launches, **vsrpp_launches()}
     deform_conv2d_raw.launches, group_norm_act.launches = saved
     return model, state, met, launches, calls[0]
 
@@ -1497,6 +1517,7 @@ def small_blur_train_step(device, x_scale=1.0):
              group_norm_act.launches)
     deform_conv2d_raw.launches = flash_attention.launches = 0
     group_norm_act.launches = 0
+    reset_vsrpp_launches()
     calls, hooks = count_norm_calls(model)
     state, met = make_train_step(d, wrap_blur_train(d, model), cfg)(
         state, {"x_start": dev(x0) * x_scale, "low_res_input": dev(low),
@@ -1506,7 +1527,7 @@ def small_blur_train_step(device, x_scale=1.0):
         h.remove()
     launches = {"dcn_raw": deform_conv2d_raw.launches,
                 "flash_attn": flash_attention.launches,
-                "group_norm": group_norm_act.launches}
+                "group_norm": group_norm_act.launches, **vsrpp_launches()}
     (deform_conv2d_raw.launches, flash_attention.launches,
      group_norm_act.launches) = saved
     return model, state, met, launches, calls[0]
@@ -1575,9 +1596,11 @@ def phase_slice_small_train(ctx):
     model, st_g, met_g, launches, norm_calls = small_train_step("cuda")
     secs = time.time() - t0
     _, st_c, met_c, *_ = small_train_step("cpu")
-    # 2 branches × (T - 1) frames a VSR++ site; 3 launches a norm call
+    # 2 branches × (T - 1) frames a VSR++ site; 3 launches a norm call;
+    # the step kernels run under autograd as without it, T = 3
     expect = {"dcn_raw": 2 * 2 * dcn_sites(model),
-              "group_norm": 3 * norm_calls}
+              "group_norm": 3 * norm_calls,
+              **vsrpp_expected(dcn_sites(model), 3)}
     rec = {"phase": "slice_small_train", "model": "x8_s64",
            **train_errors(st_g, met_g, st_c, met_c),
            "launches": launches, "launches_expected": expect,
@@ -1606,7 +1629,8 @@ def phase_slice_small_train(ctx):
     # norm call, recomputes included
     expect = {"dcn_raw": 2 * 2 * 2 * dcn_sites(model),
               "flash_attn": 2 * attention_sites(model),
-              "group_norm": 3 * norm_calls}
+              "group_norm": 3 * norm_calls,
+              **vsrpp_expected(2 * dcn_sites(model), 3)}
     rec = {"phase": "slice_small_train", "model": "gaussian_s64 (remat)",
            **train_errors(st_g, met_g, st_c, met_c, jump),
            "tensors": len(jump), "launches": launches,
@@ -1657,8 +1681,9 @@ def phase_train_full(ctx):
     trunk, float32 parameters) training through ``TrainRunner``: AdamW lr
     1e-4, one EMA stream (0.9999), the face_bicubic 2000-step schedule;
     B = 1, T = TRAIN_T, ``low_res_input`` the bicubic ×8 upsample of a 64²
-    clip, ``x_start`` it plus noise at 0.1, 512². Each step's K1 / K2
-    counts are set to 0 just before ``run_step`` and read just after."""
+    clip, ``x_start`` it plus noise at 0.1, 512². Each step's K1 / K2 /
+    step-kernel counts are set to 0 just before ``run_step`` and read just
+    after."""
     dev = torch.device("cuda")
     held_gib = torch.cuda.memory_allocated() / 2 ** 30
     model = get_model("bicubic_unet", dtype=torch.bfloat16)
@@ -1668,7 +1693,7 @@ def phase_train_full(ctx):
     apply = wrap_bicubic_train(d, model)
     batch, gen = x8_train_batch(TRAIN_T, dev)
     expect = {"dcn_raw": 2 * (TRAIN_T - 1) * dcn_sites(model),
-              "flash_attn": 0}
+              "flash_attn": 0, **vsrpp_expected(dcn_sites(model), TRAIN_T)}
     rec = {"phase": "train_full", "model": "bicubic_unet (registry defaults)",
            "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
            "batch": [1, TRAIN_T, 512, 512, 3], "launches_expected": expect}
@@ -1752,12 +1777,14 @@ def timed_step(runner, batch):
     before and read just after: (host metrics, wall ms, launches)."""
     torch.cuda.synchronize()
     deform_conv2d_raw.launches = flash_attention.launches = 0
+    reset_vsrpp_launches()
     t0 = time.perf_counter()
     host = runner.run_step(batch)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     return host, ms, {"dcn_raw": deform_conv2d_raw.launches,
-                      "flash_attn": flash_attention.launches}
+                      "flash_attn": flash_attention.launches,
+                      **vsrpp_launches()}
 
 
 def bad_gradients(grads) -> dict:
@@ -1798,7 +1825,8 @@ def train_full_remat(ctx):
     cfg = TrainConfig(lr=TRAIN_LR, ema_rates=(0.9999,))
     batch, _ = x8_train_batch(REMAT_T, dev)
     expect = {"dcn_raw": 2 * 2 * (REMAT_T - 1) * dcn_sites(model),
-              "flash_attn": 0}
+              "flash_attn": 0,
+              **vsrpp_expected(2 * dcn_sites(model), REMAT_T)}
     with tempfile.TemporaryDirectory() as tmp:
         train_log.configure(os.path.join(tmp, "log"), format_strs=["json"])
         runner = TrainRunner(d, wrap_bicubic_train(d, model), cfg, model,
@@ -1873,7 +1901,8 @@ def train_full_skip(ctx):
     batch, _ = x8_train_batch(REMAT_T, dev)
     batch["low_res_input"] = batch["low_res_input"][:, ::2].contiguous()
     expect = {"dcn_raw": 2 * 2 * (REMAT_T - 1) * dcn_sites(model),
-              "flash_attn": 0}
+              "flash_attn": 0,
+              **vsrpp_expected(2 * dcn_sites(model), REMAT_T)}
     with tempfile.TemporaryDirectory() as tmp:
         train_log.configure(os.path.join(tmp, "log"), format_strs=["json"])
         runner = TrainRunner(d, wrap_bicubic_train(d, model), cfg, model,
@@ -1950,7 +1979,8 @@ def phase_train_full_blur(ctx):
                                                   device=dev), -1, 1)
     batch = {"x_start": x_start, "low_res_input": low, "rnn_input": rnn}
     expect = {"dcn_raw": 2 * 2 * (BLUR_T - 1) * dcn_sites(model),
-              "flash_attn": 2 * attention_sites(model)}
+              "flash_attn": 2 * attention_sites(model),
+              **vsrpp_expected(2 * dcn_sites(model), BLUR_T)}
     rec = {"phase": "train_full_blur",
            "model": "blur_unet (registry defaults, use_checkpoint)",
            "params_m": sum(p.numel() for p in model.parameters()) / 1e6,
@@ -2130,15 +2160,16 @@ def phase_davsr_full(ctx):
     clip = moving_clip(DAVSR_T, DAVSR_SIZE, dev)
     s0 = model.sf[0]
     expect = {"dcn_raw": 2 * (s0 * DAVSR_T - 1) * model.n_iter,
-              "flash_attn": 0}
+              "flash_attn": 0, **vsrpp_expected(model.n_iter, s0 * DAVSR_T)}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     deform_conv2d_raw.launches = flash_attention.launches = 0
+    reset_vsrpp_launches()
     with torch.no_grad():
         out = model(clip)
         torch.cuda.synchronize()
     launches = {"dcn_raw": deform_conv2d_raw.launches,
-                "flash_attn": flash_attention.launches}
+                "flash_attn": flash_attention.launches, **vsrpp_launches()}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     saved = deform_conv2d_raw.launches
     with torch.no_grad():
@@ -2469,6 +2500,7 @@ def run_full(ctx, name, task, model, make_apply, clip, face=None,
         os.environ["FLAIR_DCN_INT8"] = "1"
     deform_conv2d_raw.launches = flash_attention.launches = 0
     deform_conv2d_raw.launches_int8 = group_norm_act.launches = 0
+    reset_vsrpp_launches()
     for f in face or ():
         f.calls = 0
     t0 = time.time()
@@ -2485,13 +2517,16 @@ def run_full(ctx, name, task, model, make_apply, clip, face=None,
     launches = {"dcn_raw": deform_conv2d_raw.launches,
                 "dcn_raw_int8": deform_conv2d_raw.launches_int8,
                 "flash_attn": flash_attention.launches,
-                "group_norm": group_norm_act.launches}
+                "group_norm": group_norm_act.launches, **vsrpp_launches()}
     k1 = DCN_PER_STEP[name] * steps * n_windows
     norm_sites = sum(isinstance(m, GroupNorm32) for m in model.modules())
     expect = {"dcn_raw": 0 if int8 else k1,
               "dcn_raw_int8": k1 if int8 else 0,
               "flash_attn": FLASH_PER_STEP[name] * steps * n_windows,
-              "group_norm": 3 * norm_sites * steps * n_windows}
+              "group_norm": 3 * norm_sites * steps * n_windows,
+              # every window is FRAME_SLICE_LEN frames (the tail padded)
+              **vsrpp_expected(k1 // (2 * (FRAME_SLICE_LEN - 1)),
+                               FRAME_SLICE_LEN)}
     out_size = base.output_size
     rec = {"phase": name, "task": task, "steps": FULL_STEPS,
            "windows": n_windows, "shape": list(out.shape),
@@ -2641,11 +2676,12 @@ def rank_small_restore(task):
     mesh = frame_mesh()
     deform_conv2d_raw.launches = flash_attention.launches = 0
     all_gather_frames.bytes = group_norm_act.launches = 0
+    reset_vsrpp_launches()
     out = small_sharded_restore(task, "cuda", mesh)
     return out, {"dcn_raw": deform_conv2d_raw.launches,
                  "flash_attn": flash_attention.launches,
-                 "group_norm": group_norm_act.launches}, \
-        all_gather_frames.bytes
+                 "group_norm": group_norm_act.launches,
+                 **vsrpp_launches()}, all_gather_frames.bytes
 
 
 def phase_sharded_small(ctx):
@@ -2677,9 +2713,14 @@ def phase_sharded_small(ctx):
                    "seconds": round(secs, 3)}
             emit(rec)
             need_k2 = task != "x8_bicubic"
+            # the step kernels run the whole recurrence on every rank: a
+            # warp before each K1 call
             launched = norm_unsharded > 0 and all(
                 c["dcn_raw"] > 0 and (c["flash_attn"] > 0 or not need_k2)
-                and c["group_norm"] == 0 for c in rec["launches"])
+                and c["group_norm"] == 0
+                and c["vsrpp_warp_pair"] == c["dcn_raw"]
+                and c["vsrpp_gate_tail"] > c["dcn_raw"]
+                for c in rec["launches"])
             if not (launched and max(rec["max_abs_err"])
                     <= SHARDED_SMALL_TOL):
                 bad.append(rec)
@@ -2711,6 +2752,7 @@ def full_window_restore(model, clip, mesh=None):
     torch.cuda.synchronize()
     deform_conv2d_raw.launches = flash_attention.launches = 0
     all_gather_frames.bytes = group_norm_act.launches = 0
+    reset_vsrpp_launches()
     t0 = time.time()
     out = restore_video(clip, cfg, apply, diffusion=d, sampler="ddim",
                         device=dev, mesh=mesh,
@@ -2719,7 +2761,7 @@ def full_window_restore(model, clip, mesh=None):
     return (out, time.time() - t0,
             {"dcn_raw": deform_conv2d_raw.launches,
              "flash_attn": flash_attention.launches,
-             "group_norm": group_norm_act.launches},
+             "group_norm": group_norm_act.launches, **vsrpp_launches()},
             torch.cuda.max_memory_allocated() / 2 ** 30)
 
 
@@ -2768,8 +2810,11 @@ def phase_sharded_full(ctx):
     norm_sites = sum(isinstance(m, GroupNorm32) for m in model.modules())
     del model
     torch.cuda.empty_cache()
-    expect = {"dcn_raw": DCN_PER_STEP["slice_full"] * steps,
-              "flash_attn": 0, "group_norm": 3 * norm_sites * steps}
+    k1 = DCN_PER_STEP["slice_full"] * steps
+    expect = {"dcn_raw": k1, "flash_attn": 0,
+              "group_norm": 3 * norm_sites * steps,
+              **vsrpp_expected(k1 // (2 * (SHARD_FULL_FRAMES - 1)),
+                               SHARD_FULL_FRAMES)}
     expect_rank = {**expect, "group_norm": 0}
     ranks = world(ctx).run(rank_full_restore, clip)
     sites = 3   # VSR++ sites at each of 512² and 256² (down 1, up 2)
@@ -2927,7 +2972,8 @@ def phase_train_dp(ctx):
     # remat runs each level block's forward twice: 2 × 2 branches ×
     # (T - 1) frames a VSR++ site, on every rank as unsharded
     expect = {"dcn_raw": 2 * 2 * (SHARD_TRAIN_T - 1) * dcn_sites(model),
-              "flash_attn": 0}
+              "flash_attn": 0,
+              **vsrpp_expected(2 * dcn_sites(model), SHARD_TRAIN_T)}
     runner = full_dp_runner(model, ctx["tmp"])
     host, ms, launches, warm_ms, peak, update = warm_then_timed_step(
         runner, batch)
@@ -3317,6 +3363,160 @@ def phase_kernel_norm(ctx):
     ctx["norm_rows"] = rows
 
 
+VSRPP_OPS = ("warp_pair", "bias_act", "gate_tail")
+
+
+def vsrpp_launches() -> dict:
+    """The BasicVSR++ step kernels' launch counters, by kernel."""
+    return {f"vsrpp_{op}": getattr(vsrpp_step, op).launches
+            for op in VSRPP_OPS}
+
+
+def reset_vsrpp_launches() -> None:
+    for op in VSRPP_OPS:
+        getattr(vsrpp_step, op).launches = 0
+
+
+def vsrpp_expected(calls: int, frames: int) -> dict:
+    """The step kernels' launches of ``calls`` BasicVSRPP forwards over
+    ``frames`` frames with grad off, two branches a call: a warp at every
+    frame after a branch's first, a tail at every frame, and bias passes:
+    2 hoisted a branch, 2 at its first frame (the input conv's and the
+    residual block's first conv's), 6 at every other."""
+    return {"vsrpp_warp_pair": calls * 2 * (frames - 1),
+            "vsrpp_bias_act": calls * 2 * (6 * frames - 2),
+            "vsrpp_gate_tail": calls * 2 * frames}
+
+
+def vsrpp_inputs(hw, c, dtype, g, seed, dev):
+    """One frame of a VSR++ step (B = 1, NHWC storage, ``dtype``): the
+    pair [n1 | n2], two smooth flows of up to ±6 px (samples past every
+    border), conv outputs of C and 27·G channels, an addend, float32
+    biases, the gate per frame and per pixel, an output slot."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device=dev)
+
+    def act(ch):
+        return randn(1, ch, hw, hw).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+
+    yy = torch.arange(hw, device=dev).view(hw, 1) / hw
+    xx = torch.arange(hw, device=dev).view(1, hw) / hw
+
+    def flow():
+        ph = randn(2) * 6.28
+        return torch.stack([6 * torch.sin(6.28 * (yy + 2 * xx) + ph[0]),
+                            6 * torch.cos(6.28 * (2 * yy - xx) + ph[1])])[None]
+
+    return {"pair": act(2 * c), "f1": flow(), "f2": flow(), "x": act(c),
+            "xo": act(27 * g), "add": act(c), "bias": randn(c) * 0.1,
+            "bias_o": randn(27 * g) * 0.1, "prop": act(c), "r": act(c),
+            "y": act(c), "gate_f": torch.rand((1, 1, 1, 1), generator=gen,
+                                              device=dev).to(dtype),
+            "gate_p": torch.rand((1, hw, hw, 1), generator=gen,
+                                 device=dev).to(dtype),
+            "out": act(c)}
+
+
+def vsrpp_rows(hw, c, dtype, g, seed, dev):
+    """Each op of a VSR++ frame at one width: (label, kernel call, plain
+    call on the same tensors, plain call on float32 copies, bytes read and
+    written once)."""
+    a = vsrpp_inputs(hw, c, dtype, g, seed, dev)
+    f = {k: (v.float() if v.dtype == dtype else v) for k, v in a.items()}
+    s, px = torch.finfo(dtype).bits // 8, hw * hw
+    plane = c * px * s
+    warp = (lambda t: (lambda: vsrpp_step.warp_pair(t["pair"], t["f1"],
+                                                    t["f2"])))
+    plain_warp = (lambda t: (lambda: vsrpp_step.warp_pair_plain(
+        t["pair"], t["f1"], t["f2"])))
+    rows = [("warp_pair", warp(a), plain_warp(a), plain_warp(f),
+             4 * plane + 4 * px * 4)]
+    for label, xk, bk, addk, act in (
+            ("bias_act addend leaky", "x", None, "add", "leaky"),
+            ("bias_act bias leaky", "x", "bias", None, "leaky"),
+            ("bias_act bias 27G", "xo", "bias_o", None, None),
+            ("bias_act bias relu", "x", "bias", None, "relu")):
+        def call(t, fn, xk=xk, bk=bk, addk=addk, act=act):
+            return lambda: fn(t[xk], None if bk is None else t[bk],
+                              None if addk is None else t[addk], act)
+        ch = a[xk].shape[1]
+        rows.append((label, call(a, vsrpp_step.bias_act),
+                     call(a, vsrpp_step.bias_act_plain),
+                     call(f, vsrpp_step.bias_act_plain),
+                     (3 if addk else 2) * ch * px * s + ch * 4))
+    for label, gk, pk in (("gate_tail frame gate", "gate_f", "prop"),
+                          ("gate_tail pixel gate", "gate_p", "prop"),
+                          ("gate_tail first frame", "gate_f", None)):
+        def call(t, fn, gk=gk, pk=pk):
+            return lambda: fn(None if pk is None else t[pk], t["r"], t["y"],
+                              t["bias"], t[gk], t["out"], t["pair"])
+        rows.append((label, call(a, vsrpp_step.gate_tail),
+                     call(a, vsrpp_step.gate_tail_plain),
+                     call(f, vsrpp_step.gate_tail_plain),
+                     (7 if pk else 6) * plane + a[gk].numel() * s + c * 4))
+    return rows
+
+
+def phase_kernel_vsrpp(ctx):
+    """BasicVSR++'s step kernels (csrc/vsrpp_step.cu) at VSRPP_SHAPES: each
+    op against its plain version on float32 copies (max error over the
+    largest |output|), one launch a call, its time beside the plain
+    composition in the working dtype and the bound; then a frame's glue in
+    all: the warp, five bias passes at C channels (offset conv 0, 1, 2, the
+    input conv, the block's first conv) and one at 27·G (the offset head),
+    and the tail."""
+    dev = torch.device("cuda")
+    out_rows = []
+    for i, (hw, c, dtype, g) in enumerate(VSRPP_SHAPES):
+        frame = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+        for label, kern, plain, plain32, nbytes in vsrpp_rows(
+                hw, c, dtype, g, 900 + i, dev):
+            before = vsrpp_launches()
+            with torch.no_grad():
+                out = kern()
+                ref = plain32()
+            torch.cuda.synchronize()
+            launched = sum(vsrpp_launches().values()) - sum(before.values())
+            err = (out.float() - ref).abs().max().item()
+            rel = err / ref.abs().max().item()
+            del out, ref
+            with torch.no_grad():
+                ms = cuda_ms(kern, reps=20)
+                plain_ms = cuda_ms(plain, reps=20)
+            for op in VSRPP_OPS:    # timing does not count
+                getattr(vsrpp_step, op).launches = before[f"vsrpp_{op}"]
+            row = {"shape": f"{label} (1,{hw},{hw},{c}) G={g}",
+                   "dtype": str(dtype), "max_abs_err": err,
+                   "max_rel_err": rel, "tol_rel": VSRPP_TOL_REL,
+                   "launches_a_call": launched, "ms": ms,
+                   "plain_ms": plain_ms, "library_ms": None,
+                   "bound_ms": nbytes / MEM_BW * 1e3, "bound_by": "bytes",
+                   "bytes": nbytes, "bound_share": nbytes / MEM_BW * 1e3 / ms,
+                   "card": ctx["smi"]}
+            emit({"phase": "kernel_vsrpp", **row})
+            out_rows.append(row)
+            if not (rel <= VSRPP_TOL_REL and launched == 1):
+                raise AssertionError(f"vsrpp_step fails at {row['shape']}: "
+                                     f"rel {rel} (tol {VSRPP_TOL_REL}), "
+                                     f"{launched} launches")
+            # a frame after the first: the warp, the tail with its frame
+            # gate, and the bias passes at their sites
+            times = {"warp_pair": 1, "gate_tail frame gate": 1,
+                     "bias_act addend leaky": 2, "bias_act bias leaky": 2,
+                     "bias_act bias 27G": 1, "bias_act bias relu": 1}
+            for k in frame:
+                frame[k] += times.get(label, 0) * row[k]
+        emit({"phase": "kernel_vsrpp", "frame": f"(1,{hw},{hw},{c}) G={g}",
+              "dtype": str(dtype), **frame,
+              "bound_share": frame["bound_ms"] / frame["ms"],
+              "card": ctx["smi"]})
+        torch.cuda.empty_cache()
+    ctx["vsrpp_rows"] = out_rows
+
+
 def kernel_record(name, source, replaces, rows, launches, main_path,
                   grad_rows=()):
     """One entry of the ``kernels`` line: the numbers of the first shape
@@ -3368,7 +3568,7 @@ def main() -> int:
                 "probe_dot": ctx.get("probe_launches", {})}
     for path, counts in ctx.get("launches", {}).items():
         for kern, n in counts.items():
-            launches[kern][path] = n
+            launches.setdefault(kern, {})[path] = n
     emit({"phase_seconds": seconds})
     kernels = []
     if "kernel_dcn" in phases:
@@ -3396,6 +3596,14 @@ def main() -> int:
             "group_norm", "flair_tpu_torch/csrc/group_norm.cu",
             "none (XLA fuses GroupNorm on the TPU)", ctx["norm_rows"],
             launches["group_norm"], "slice_full"))
+    if "kernel_vsrpp" in phases:
+        kernels.append(kernel_record(
+            "vsrpp_step", "flair_tpu_torch/csrc/vsrpp_step.cu",
+            "none (XLA fuses the step's glue on the TPU)", ctx["vsrpp_rows"],
+            {path: sum(n for k, n in counts.items()
+                       if k.startswith("vsrpp_"))
+             for path, counts in ctx.get("launches", {}).items()},
+            "slice_full"))
     if kernels:
         emit({"kernels": kernels})
     print(ctx["smi"], flush=True)

@@ -11,7 +11,12 @@ aligned feature is zero (the reference multiplies it by zero).
 
 Every alignment calls ``ops.dcn.deform_conv2d_raw``: the CUDA kernel on the
 card, its plain twin on the CPU. ``FLAIR_DCN_INT8=1`` selects its int8
-instance, as the JAX package's ``_tile_config`` reads the variable.
+instance, as the JAX package's ``_tile_config`` reads the variable. The
+glue around the convs of a step (the warp of both hidden states, each
+bias and activation, the gated residual) is ``ops.vsrpp_step``: one kernel
+launch each on the card (under autograd too, with a plain float32
+backward), the plain op sequence on the CPU. The forward copies nothing
+from the host.
 
 Conventions: hidden features (B·T, C, H, W) channels_last; flows
 (B, T-1, 2, H, W) float32, channel 0 = dx; gating weights in the host layout
@@ -22,14 +27,13 @@ from __future__ import annotations
 
 import os
 
-import numpy as np
 import torch
 import torch.distributed as dist
 import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.dcn import deform_conv2d_raw
-from ..ops.resize import resize_matrix
+from ..ops.vsrpp_step import bias_act, gate_tail, warp_pair
 from ..ops.warp import flow_warp
 from ..parallel.collectives import all_gather_frames
 from ..utils.spans import span
@@ -65,39 +69,41 @@ def compose_second_order_flows(flows_forward, flows_backward):
 
 
 def resize_weight_map(weight, h: int, w: int):
-    """Nearest-resize a (B, T, H0, W0, 1) gating map to (h, w)."""
-    ry = torch.as_tensor(resize_matrix(h, weight.shape[2], "nearest"),
-                         dtype=weight.dtype, device=weight.device)
-    rx = torch.as_tensor(resize_matrix(w, weight.shape[3], "nearest"),
-                         dtype=weight.dtype, device=weight.device)
-    weight = torch.einsum("uh,bthwc->btuwc", ry, weight)
-    return torch.einsum("vw,bthwc->bthvc", rx, weight)
+    """Nearest-resize a (B, T, H0, W0, 1) gating map to (h, w): output row i
+    takes input row floor(i·H0 / h), as ``resize_matrix(..., "nearest")``
+    selects it, by an index built on the map's device (no host copy)."""
+    def rows(out: int, inp: int):
+        i = torch.arange(out, device=weight.device) * inp // out
+        return i.clamp_max(inp - 1)
+
+    return weight.index_select(2, rows(h, weight.shape[2])).index_select(
+        3, rows(w, weight.shape[3]))
 
 
-def _offset_perm(g: int) -> np.ndarray:
+def _offset_perm(g: int) -> torch.Tensor:
     """Output-channel permutation of ``offset_out`` making its y / x offset
     planes contiguous: the reference interleaves (group, tap, y|x) per
     anchor half (unet.py:636-645). Weights are stored in reference order
     and permuted when applied."""
-    nch = 27 * g
     ko = 9 * (g // 2)
-    base_c = np.arange(ko) * 2
-    return np.concatenate([
+    base_c = torch.arange(ko) * 2
+    return torch.cat([
         base_c, 2 * ko + base_c,              # y: half 1, half 2
         base_c + 1, 2 * ko + base_c + 1,      # x: half 1, half 2
-        np.arange(4 * ko, nch),               # mask block unchanged
+        torch.arange(4 * ko, 27 * g),         # mask block unchanged
     ])
 
 
-def apply_deform_align(x, raw_y, raw_x, mask_logits, flow_1, flow_2, weight,
-                       bias, *, max_residue_magnitude: float, dtype):
+def apply_deform_align(x, raw_y, raw_x, mask_logits, flow_y, flow_x, weight,
+                       bias, *, max_residue_magnitude: float):
     """Deformable alignment from PRE-ACTIVATION offset/mask blocks.
 
-    ``x`` (B, 2C, H, W) = cat(prop_n1, prop_n2); ``raw_y``/``raw_x``/
-    ``mask_logits`` (B, H, W, G·9) NHWC views in (group, tap) order (the
-    first G/2 groups anchored on flow 1); ``flow_1``/``flow_2`` (fx, fy)
-    tuples of (B, H, W) planes; ``weight`` (C, 2C, 3, 3). Offsets, masks
-    and sample coordinates stay float32; values run in ``dtype``.
+    ``x`` (B, 2C, H, W) = cat(prop_n1, prop_n2) with NHWC storage (the
+    step's pair); ``raw_y``/``raw_x``/``mask_logits`` (B, H, W, G·9) NHWC
+    views in (group, tap) order (the first G/2 groups anchored on flow 1),
+    in x's dtype; ``flow_y``/``flow_x`` (B, H, W, 2) float32 planes of both
+    anchors' flows, contiguous; ``weight`` (C, 2C, 3, 3). Offsets, masks
+    and sample coordinates stay float32; values run in x's dtype.
 
     ``FLAIR_DCN_INT8=1`` in the environment (read at every call, default
     off) runs the DCN's int8 instance, as JAX's ``_tile_config``
@@ -105,15 +111,10 @@ def apply_deform_align(x, raw_y, raw_x, mask_logits, flow_1, flow_2, weight,
     call. JAX takes its exact patch path off the TPU and never runs int8
     there; the port runs its kernel's numbers on every device."""
     int8 = os.environ.get("FLAIR_DCN_INT8", "0") == "1"
-    f1x, f1y = flow_1
-    f2x, f2y = flow_2
-    flow_y = torch.stack([f1y, f2y], dim=-1).float().contiguous()
-    flow_x = torch.stack([f1x, f2x], dim=-1).float().contiguous()
-    xv = nhwc(x.to(dtype)).contiguous()
-    y = deform_conv2d_raw(xv, raw_y.to(dtype), raw_x.to(dtype),
-                          mask_logits.to(dtype), flow_y, flow_x, weight, bias,
-                          float(max_residue_magnitude), int8_dots=int8)
-    return nchw(y).to(x.dtype)
+    y = deform_conv2d_raw(nhwc(x), raw_y, raw_x, mask_logits, flow_y, flow_x,
+                          weight, bias, float(max_residue_magnitude),
+                          int8_dots=int8)
+    return nchw(y)
 
 
 class ResidualBlockNoBN(nn.Module):
@@ -160,6 +161,8 @@ class _AlignParams(nn.Module):
         self.weight = nn.Parameter(torch.zeros(c, 2 * c, 3, 3))
         self.bias = nn.Parameter(torch.zeros(c))
         _lecun_(self.weight.data, 2 * c * 9)
+        # a constant of the layout, not a weight: kept out of state_dict
+        self.register_buffer("offset_perm", _offset_perm(g), persistent=False)
 
 
 class _BranchParams(nn.Module):
@@ -180,7 +183,11 @@ def _run_branch(p: _BranchParams, feats, extra, flow1, flow2, weight, order,
     branch's output, forward branch only) in natural frame order;
     ``flow1``/``flow2`` (B, T, 2, H, W) the branch's first- and second-order
     flow AT each frame; ``weight`` (B, T, h, w, 1) gating. Returns the
-    per-frame outputs (B·T, C, H, W) in natural frame order."""
+    per-frame outputs (B·T, C, H, W) in natural frame order.
+
+    The hidden pair [prop_n1 | prop_n2] is one (B, 2C, H, W) tensor with
+    NHWC storage, the layout K1 reads; the glue around each conv is one
+    ``ops.vsrpp_step`` call (a kernel launch on the card)."""
     n, c, h, w = feats.shape
     t = n // b
     g = deform_groups
@@ -188,70 +195,63 @@ def _run_branch(p: _BranchParams, feats, extra, flow1, flow2, weight, order,
     al, bb = p.deform_align, p.backbone
 
     def conv(v, k):
-        return F.conv2d(v.to(dt), k.to(dt), padding=k.shape[-1] // 2)
+        return F.conv2d(v.to(dt), k, padding=k.shape[-1] // 2)
 
-    def vec(bias):  # (C,) → (1, C, 1, 1) in the compute dtype
-        return bias.to(dt)[None, :, None, None]
+    def prep(k):  # a conv weight in the compute dtype and cuDNN's layout
+        return k.to(dt).contiguous(memory_format=torch.channels_last)
 
-    k0, b0 = al.offset_conv0.weight, vec(al.offset_conv0.bias)
-    k1, b1 = al.offset_conv1.weight, vec(al.offset_conv1.bias)
-    k2, b2 = al.offset_conv2.weight, vec(al.offset_conv2.bias)
-    perm = torch.as_tensor(_offset_perm(g), device=k0.device)
-    ko_p = al.offset_out.weight.index_select(0, perm)
-    bo_p = vec(al.offset_out.bias.index_select(0, perm))
-    kin, bin_ = bb.conv_in.weight, vec(bb.conv_in.bias)
-    kb1, bb1 = bb.block0.conv1.weight, vec(bb.block0.conv1.bias)
-    kb2, bb2 = bb.block0.conv2.weight, vec(bb.block0.conv2.bias)
+    k0 = al.offset_conv0.weight
+    k0_xs = prep(torch.cat([k0[:, c:2 * c], k0[:, 3 * c:]], dim=1))
+    k0_ser = prep(torch.cat([k0[:, :c], k0[:, 2 * c:3 * c]], dim=1))
+    k1, k2 = prep(al.offset_conv1.weight), prep(al.offset_conv2.weight)
+    ko_p = prep(al.offset_out.weight.index_select(0, al.offset_perm))
+    bo_p = al.offset_out.bias.index_select(0, al.offset_perm)
+    kin = bb.conv_in.weight
     e = 0 if extra is None else extra.shape[1]
+    kin_xs, kin_ser = prep(kin[:, :c + e]), prep(kin[:, c + e:])
+    kb1, kb2 = prep(bb.block0.conv1.weight), prep(bb.block0.conv2.weight)
 
     # ---- hoisted frame-batched halves ---------------------------------
     # offset_conv0 input blocks: [0:C) cond_n1, [C:2C) feat_current,
     # [2C:3C) cond_n2, [3C:3C+4) flows (f1x, f1y, f2x, f2y)
     fl = channels_last(torch.cat([flow1, flow2], dim=2).reshape(n, 4, h, w))
-    k0_xs = torch.cat([k0[:, c:2 * c], k0[:, 3 * c:]], dim=1)
-    h0_xs = conv(torch.cat([feats.to(dt), fl.to(dt)], dim=1), k0_xs) + b0
+    h0_xs = bias_act(conv(torch.cat([feats.to(dt), fl.to(dt)], dim=1), k0_xs),
+                     al.offset_conv0.bias)
     # backbone conv_in blocks: [0:C) feat_current, [C:C+e) extra, then prop
     bb_in = feats if e == 0 else torch.cat([feats, extra], dim=1)
-    bb_xs = conv(bb_in, kin[:, :c + e]) + bin_
-    k0_ser = torch.cat([k0[:, :c], k0[:, 2 * c:3 * c]], dim=1)
-    kin_ser = kin[:, c + e:]
+    bb_xs = bias_act(conv(bb_in, kin_xs), bb.conv_in.bias)
+    # K1's flow planes of both anchors, every frame: (T, B, H, W, 2)
+    flow_y, flow_x = (torch.stack([flow1[:, :, i], flow2[:, :, i]], dim=-1)
+                      .transpose(0, 1).float().contiguous() for i in (1, 0))
 
     def frame(v, j):  # (B·T, ...) → frame j of every clip
         return v.reshape(b, t, *v.shape[1:])[:, j]
 
     out = torch.empty_like(feats)
-    prop_n1 = channels_last(torch.zeros((b, c, h, w), dtype=feats.dtype,
-                                        device=feats.device))
-    prop_n2 = prop_n1
+    pair = channels_last(torch.zeros((b, 2 * c, h, w), dtype=feats.dtype,
+                                     device=feats.device))
     koff = 9 * (g // 2)
     for i, j in enumerate(order):
-        f1, f2 = flow1[:, j], flow2[:, j]
         if i > 0:
-            both = channels_last(flow_warp(
-                torch.cat([prop_n1, prop_n2], dim=0),
-                (torch.cat([f1[:, 0], f2[:, 0]], dim=0),
-                 torch.cat([f1[:, 1], f2[:, 1]], dim=0))))
-            cond_n1, cond_n2 = both.chunk(2, dim=0)
-            hh = conv(torch.cat([cond_n1, cond_n2], dim=1), k0_ser)
-            hh = leaky_relu(hh + frame(h0_xs, j), 0.1)
-            hh = leaky_relu(conv(hh, k1) + b1, 0.1)
-            hh = leaky_relu(conv(hh, k2) + b2, 0.1)
+            hh = bias_act(conv(warp_pair(pair, flow1[:, j], flow2[:, j]),
+                               k0_ser), addend=frame(h0_xs, j), act="leaky")
+            hh = bias_act(conv(hh, k1), al.offset_conv1.bias, act="leaky")
+            hh = bias_act(conv(hh, k2), al.offset_conv2.bias, act="leaky")
             # the raw blocks are channel slices of one NHWC tensor
-            o = nhwc(channels_last(conv(hh, ko_p) + bo_p))
+            o = nhwc(bias_act(conv(hh, ko_p), bo_p))
             prop = apply_deform_align(
-                torch.cat([prop_n1, prop_n2], dim=1), o[..., :2 * koff],
-                o[..., 2 * koff:4 * koff], o[..., 4 * koff:],
-                (f1[:, 0], f1[:, 1]), (f2[:, 0], f2[:, 1]), al.weight,
-                al.bias, max_residue_magnitude=max_residue_magnitude,
-                dtype=dt).to(prop_n1.dtype)
-        else:
-            prop = torch.zeros_like(prop_n1)
-        r = leaky_relu(conv(prop, kin_ser) + frame(bb_xs, j), 0.1)
-        rb = conv(F.relu(conv(r, kb1) + bb1), kb2) + bb2
-        wt = weight[:, j].permute(0, 3, 1, 2).to(prop.dtype)  # (B, 1, h, w)
-        prop_out = ((prop + (r + rb)) * wt).to(prop_n1.dtype)
-        prop_n1, prop_n2 = prop_out, prop_n1
-        out.view(b, t, c, h, w)[:, j] = prop_out
+                pair, o[..., :2 * koff], o[..., 2 * koff:4 * koff],
+                o[..., 4 * koff:], flow_y[j], flow_x[j], al.weight, al.bias,
+                max_residue_magnitude=max_residue_magnitude)
+            r = bias_act(conv(prop, kin_ser), addend=frame(bb_xs, j),
+                         act="leaky")
+        else:  # no aligned feature at a branch's first frame
+            prop = None
+            r = bias_act(frame(bb_xs, j), act="leaky")
+        y = conv(bias_act(conv(r, kb1), bb.block0.conv1.bias, act="relu"),
+                 kb2)
+        pair = gate_tail(prop, r, y, bb.block0.conv2.bias, weight[:, j],
+                         frame(out, j), pair)
     return out
 
 

@@ -9,6 +9,7 @@ layout every norm site hands the kernel.
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 import jax.numpy as jnp
 
@@ -304,3 +305,343 @@ def test_norm_sites_take_channels_last(name):
         else:
             model(x, torch.full((1, 3), 10), low)
     assert len(norms) > 10 and calls == {m: 1 for m in norms}
+
+
+# ---- BasicVSR++'s step ops (ops/vsrpp_step.py) ----------------------------
+
+def step_tensors(dtype, gate, seed=0, b=2, c=16, h=6, w=8):
+    """Seeded channels-last tensors of one VSR++ step: the pair, two flows
+    of up to ±4 px (samples past the borders), conv outputs, an addend, a
+    bias, a gate per frame or per pixel, and a 3-frame output."""
+    g = torch.Generator().manual_seed(seed)
+
+    def act(ch, n=b):
+        return torch.randn((n, ch, h, w), generator=g).to(dtype).contiguous(
+            memory_format=torch.channels_last)
+    gshape = (b, 1, 1, 1) if gate == "frame" else (b, h, w, 1)
+    return {"pair": act(2 * c), "x": act(c), "add": act(c), "r": act(c),
+            "y": act(c), "prop": act(c), "out": act(c, 3 * b),
+            "bias": torch.randn(c, generator=g),
+            "f1": torch.randn((b, 2, h, w), generator=g) * 4,
+            "f2": torch.randn((b, 2, h, w), generator=g) * 4,
+            "gate": torch.rand(gshape, generator=g).to(dtype)}
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("gate", ["frame", "pixel"])
+@pytest.mark.parametrize("addend", [False, True])
+@pytest.mark.parametrize("act", ["leaky", "relu", None])
+def test_vsrpp_step_twins_are_the_old_sequence(act, addend, gate, dtype):
+    """Each step op's plain version is the op sequence BasicVSR++'s step ran
+    before, bit for bit, and launches nothing on the CPU: the warp of both
+    hidden states (one flow_warp on their cat, then a cat of the halves),
+    a bias or an addend and the activation after a conv, and the gated
+    residual stored into the frame slot with the next pair."""
+    from flair_tpu_torch.models.common import channels_last, leaky_relu
+    from flair_tpu_torch.ops import vsrpp_step as vs
+    for op in ("warp_pair", "bias_act", "gate_tail"):
+        setattr(getattr(vs, op), "launches", 0)
+    t = step_tensors(dtype, gate)
+    c = t["x"].shape[1]
+    n1 = channels_last(t["pair"][:, :c])
+    n2 = channels_last(t["pair"][:, c:])
+    f1, f2 = t["f1"], t["f2"]
+    with torch.no_grad():
+        both = channels_last(t_warp.flow_warp(
+            torch.cat([n1, n2], dim=0),
+            (torch.cat([f1[:, 0], f2[:, 0]], dim=0),
+             torch.cat([f1[:, 1], f2[:, 1]], dim=0))))
+        assert torch.equal(vs.warp_pair(t["pair"], f1, f2),
+                           torch.cat(both.chunk(2, dim=0), dim=1))
+
+        fn = {"leaky": lambda v: leaky_relu(v, 0.1), "relu": F.relu,
+              None: lambda v: v}[act]
+        if addend:
+            old = fn(t["x"] + t["add"])
+            new = vs.bias_act(t["x"], addend=t["add"], act=act)
+        else:
+            old = fn(t["x"] + t["bias"].to(dtype)[None, :, None, None])
+            new = vs.bias_act(t["x"], t["bias"], act=act)
+        assert torch.equal(new, old)
+
+        b = t["r"].shape[0]
+        out_old = t["out"].clone()
+        rb = t["y"] + t["bias"].to(dtype)[None, :, None, None]
+        wt = t["gate"].permute(0, 3, 1, 2).to(dtype)
+        prop_out = ((t["prop"] + (t["r"] + rb)) * wt).to(dtype)
+        out_old.view(b, 3, c, *t["r"].shape[2:])[:, 1] = prop_out
+        out = t["out"].clone()
+        nxt = vs.gate_tail(t["prop"], t["r"], t["y"], t["bias"], t["gate"],
+                           out.view(b, 3, c, *t["r"].shape[2:])[:, 1],
+                           t["pair"])
+        assert torch.equal(out, out_old)
+        assert torch.equal(nxt, torch.cat([prop_out, n1], dim=1))
+    assert (vs.warp_pair.launches, vs.bias_act.launches,
+            vs.gate_tail.launches) == (0, 0, 0)
+
+
+@pytest.mark.parametrize("op", ["warp_pair", "bias_act", "gate_tail"])
+@pytest.mark.parametrize("grad", [False, True])
+def test_vsrpp_step_dispatch(op, grad, monkeypatch):
+    """With every tensor taken for a card's and the launch recorded: a call
+    reaches the launch once, with one argument for each of the C function's
+    parameters (the stream added by ``_launch``) and the views' strides in
+    elements; a call that autograd records reaches it through the op's
+    autograd Function, whose node its output carries."""
+    from flair_tpu_torch.ops import vsrpp_step as vs
+    launched = []
+    monkeypatch.setattr(vs, "_on_card", lambda t: True)
+    monkeypatch.setattr(vs, "_launch",
+                        lambda fn, dev, *args: launched.append((fn, args)))
+    t = step_tensors(torch.float32, "pixel")
+    c, (h, w) = t["x"].shape[1], t["x"].shape[2:]
+    if grad:
+        for k in ("pair", "x", "r"):
+            t[k].requires_grad_()
+    call = {"warp_pair": lambda: vs.warp_pair(t["pair"], t["f1"], t["f2"]),
+            "bias_act": lambda: vs.bias_act(t["x"], t["bias"], t["add"],
+                                            "leaky"),
+            "gate_tail": lambda: vs.gate_tail(
+                t["prop"], t["r"], t["y"], t["bias"], t["gate"],
+                t["out"][:2], t["pair"])}[op]
+    with torch.set_grad_enabled(grad):
+        out = call()
+    assert (out.grad_fn is not None) == grad
+    if grad:
+        assert type(out.grad_fn).__name__.startswith(
+            {"warp_pair": "_WarpPair", "bias_act": "_BiasAct",
+             "gate_tail": "_GateTail"}[op])
+    (fn, args), = launched
+    assert fn == f"vsrpp_{op}_launch"
+    assert len(args) + 1 == len(vs._SIGNATURES[fn][0])
+    view = (t["x"].data_ptr(), h * w * c, c)
+    if op == "bias_act":
+        assert args[2:5] == view and args[6:9] == (t["add"].data_ptr(),
+                                                   h * w * c, c)
+    elif op == "warp_pair":
+        assert args[1:4] == (t["pair"].data_ptr(), h * w * 2 * c, 2 * c)
+        assert args[6] == 2 * h * w             # the flows' frame stride
+    else:
+        assert args[11:15] == (t["gate"].data_ptr(), h * w, w, 1)
+
+
+def fake_step_kernels(monkeypatch):
+    """Every tensor taken for a card's, and each step kernel computed by its
+    plain version on the CPU (counted as a launch): the kernel route's
+    autograd Functions run as on the card."""
+    from flair_tpu_torch.ops import vsrpp_step as vs
+
+    def fake(op, plain):
+        def kernel(*args):
+            getattr(vs, op).launches += 1
+            return plain(*args)
+        monkeypatch.setattr(vs, f"_{op}_kernel", kernel)
+    monkeypatch.setattr(vs, "_on_card", lambda t: True)
+    fake("warp_pair", vs.warp_pair_plain)
+    fake("bias_act", vs.bias_act_plain)
+    fake("gate_tail", vs.gate_tail_plain)
+    for op in ("warp_pair", "bias_act", "gate_tail"):
+        setattr(getattr(vs, op), "launches", 0)
+    return vs
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["warp_pair", "bias_act", "bias_act_addend",
+                                  "gate_tail_frame", "gate_tail_pixel",
+                                  "gate_tail_first"])
+def test_vsrpp_step_grads_match_plain_autograd(case, dtype, monkeypatch):
+    """Under autograd each step op runs its kernel (here faked by its plain
+    version) inside an autograd Function whose backward is the plain
+    version's float32 VJP: the values, and the gradients of every input and
+    of the tail's output slot, are plain autograd's (float32: to rounding;
+    bf16: to one bf16 rounding of the float32 gradients)."""
+    from flair_tpu_torch.ops import vsrpp_step as vs
+    t = step_tensors(dtype, "pixel" if case == "gate_tail_pixel" else "frame")
+    c = t["x"].shape[1]
+    b = t["r"].shape[0]
+    keys = {"warp_pair": ("pair", "f1", "f2"),
+            "bias_act": ("x", "bias"), "bias_act_addend": ("x", "add"),
+            "gate_tail_frame": ("prop", "r", "y", "bias", "gate", "pair"),
+            "gate_tail_pixel": ("prop", "r", "y", "bias", "gate", "pair"),
+            "gate_tail_first": ("r", "y", "bias", "gate", "pair")}[case]
+
+    def run(ops, up):
+        leaf = {k: t[k].float().detach().requires_grad_() if up else
+                t[k].detach().clone().requires_grad_() for k in keys}
+        a = {**t, **leaf}
+        if case == "warp_pair":
+            outs = [ops.warp_pair(a["pair"], a["f1"], a["f2"])]
+        elif case.startswith("bias_act"):
+            outs = [ops.bias_act(a["x"], a.get("bias") if "bias" in keys
+                                 else None, a.get("add") if "add" in keys
+                                 else None, "leaky")]
+        else:
+            out = torch.zeros((3 * b, c, *a["r"].shape[2:]),
+                              dtype=a["r"].dtype).contiguous(
+                memory_format=torch.channels_last)
+            slot = out.view(b, 3, c, *a["r"].shape[2:])[:, 1]
+            nxt = ops.gate_tail(a["prop"] if "prop" in keys else None,
+                                a["r"], a["y"], a["bias"], a["gate"], slot,
+                                a["pair"])
+            outs = [nxt, out]
+        # weights that bf16 holds exactly: the upstream gradients of both
+        # runs are equal
+        w = [torch.randn(o.shape, generator=torch.Generator().manual_seed(i)
+                         ).bfloat16().float() for i, o in enumerate(outs)]
+        loss = sum((o.float() * wi).sum() for o, wi in zip(outs, w))
+        grads = torch.autograd.grad(loss, [leaf[k] for k in keys])
+        return [o.detach() for o in outs], dict(zip(keys, grads))
+
+    outs_ref, grads_ref = run(vs, up=True)      # plain autograd, float32
+    fake_step_kernels(monkeypatch)
+    outs, grads = run(vs, up=False)
+    op = case.split("_")[0] + "_" + case.split("_")[1]
+    assert getattr(vs, op).launches == 1
+    # bf16: the plain version's two or three roundings, and the tail's
+    # gradient of the next pair summed in bf16
+    tol = 0.0 if dtype == torch.float32 else 2 ** -7
+    for o, r in zip(outs, outs_ref):
+        assert o.dtype == dtype
+        assert torch.allclose(o.float(), r, rtol=tol,
+                              atol=tol * r.abs().max().item())
+    for k in keys:
+        assert grads[k].dtype == t[k].dtype
+        ref = grads_ref[k].to(t[k].dtype).float()
+        assert torch.allclose(grads[k].float(), ref, rtol=tol,
+                              atol=tol * ref.abs().max().item()), k
+
+
+def test_vsrpp_training_takes_the_kernels(monkeypatch):
+    """A BasicVSRPP training forward and backward with the step kernels
+    (faked by their plain versions, as the card runs them inside their
+    autograd Functions) launches them as a no-grad call does, 2(T-1) warps,
+    2(6T-2) bias passes and 2T tails, and gives plain autograd's output and
+    gradients, the frame slots of the output included."""
+    from flair_tpu_torch.models import vsrpp as t_vsrpp
+    c, g, b, t, h, w = 32, 16, 1, 3, 8, 10
+    torch.manual_seed(0)
+    m = t_vsrpp.BasicVSRPP(c, max_residue_magnitude=5.0, deform_groups=g)
+    with torch.no_grad():
+        for p in m.parameters():
+            p.add_(torch.randn(p.shape) * 0.05)
+    hid = torch.from_numpy(rand(7, b * t, c, h, w)).contiguous(
+        memory_format=torch.channels_last)
+    ff, fb = (torch.from_numpy(rand(s, b, t - 1, 2, h, w, scale=2.0))
+              for s in (8, 9))
+    wmap = torch.from_numpy(rand(10, b, t, h, w, 1, scale=0.5)).abs()
+    params = dict(m.named_parameters())
+
+    def step():
+        x = hid.clone().requires_grad_()
+        out = m(x, b, ff, fb, wmap)
+        loss = (out * torch.linspace(-1, 1, out.numel()).view(out.shape)
+                ).sum()
+        grads = torch.autograd.grad(loss, [x, *params.values()])
+        return out.detach(), grads
+
+    out_ref, grads_ref = step()
+    vs = fake_step_kernels(monkeypatch)
+    out, grads = step()
+    assert (vs.warp_pair.launches, vs.bias_act.launches,
+            vs.gate_tail.launches) == (2 * (t - 1), 2 * (6 * t - 2), 2 * t)
+    assert torch.allclose(out, out_ref, rtol=1e-6, atol=1e-6)
+    for name, gr, gk in zip(["x", *params], grads_ref, grads):
+        scale = gr.abs().max().item()
+        assert torch.allclose(gk, gr, rtol=1e-5, atol=1e-6 * scale), name
+
+
+@pytest.mark.parametrize("c,vec", [(16, 8), (54, 1)])
+def test_vsrpp_bias_act_any_width(c, vec, monkeypatch):
+    """bias_act takes any width on the card: whole 8-channel vectors launch
+    the vector instance, another width (the offset head's 27·G at G = 2)
+    the scalar one, whose views need no 16-byte alignment."""
+    from flair_tpu_torch.ops import vsrpp_step as vs
+    launched = []
+    monkeypatch.setattr(vs, "_on_card", lambda t: True)
+    monkeypatch.setattr(vs, "_launch",
+                        lambda fn, dev, *args: launched.append(args))
+    t = step_tensors(torch.bfloat16, "frame", c=c)
+    h, w = t["x"].shape[2:]
+    with torch.no_grad():
+        vs.bias_act(t["x"], t["bias"], t["add"], "leaky")
+    args, = launched
+    assert args[2:5] == (t["x"].data_ptr(), h * w * c, c)
+    assert args[-4:] == (2, h * w, c, vec)
+
+
+@pytest.mark.parametrize("case", ["channels_last", "pair_half", "clip_frame",
+                                  "nchw", "odd_offset"])
+def test_vsrpp_step_views(case):
+    """The kernels' view of a tensor: (pointer, frame stride, pixel stride)
+    in elements for channels-last storage, a channel slice of it and a frame
+    of a clip; channels-first storage and a slice off the 16-byte vectors
+    raise."""
+    from flair_tpu_torch.ops import vsrpp_step as vs
+    c, h, w = 16, 4, 6
+    base = torch.zeros((3, 2 * c, h, w), dtype=torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    v = {"channels_last": base[:, :c].contiguous(
+             memory_format=torch.channels_last),
+         "pair_half": base[:, c:],
+         "clip_frame": base.reshape(1, 3, 2 * c, h, w)[:, 1],
+         "nchw": base[:, :c].contiguous(),
+         "odd_offset": base[:, 4:4 + c]}[case]
+    ch = 2 * c if case == "clip_frame" else c
+    if case in ("nchw", "odd_offset"):
+        with pytest.raises(ValueError):
+            vs._view(v, ch, v.dtype, v.device, case)
+        return
+    ptr, sb, ps = vs._view(v, ch, v.dtype, v.device, case)
+    assert ptr == v.data_ptr() and ps == (ch if case == "channels_last"
+                                          else 2 * c)
+    assert sb == {"channels_last": h * w * c, "pair_half": h * w * 2 * c,
+                  "clip_frame": 3 * h * w * 2 * c}[case]
+
+
+def test_vsrpp_forward_copies_nothing_from_host(monkeypatch):
+    """A BasicVSRPP forward (gating map resized included) makes no tensor
+    from host data: the offset permutation is a buffer built once, absent
+    from state_dict, equal to the reference interleave; the nearest resize
+    of the gating map selects the rows and columns resize_matrix's one-hot
+    rows select, bit for bit. On the CPU no step kernel launches."""
+    from flair_tpu_torch.models import vsrpp as t_vsrpp
+    from flair_tpu_torch.ops import vsrpp_step as vs
+    c, g = 32, 16
+    m = t_vsrpp.BasicVSRPP(c, max_residue_magnitude=5.0, deform_groups=g)
+    names = {k for k, _ in m.named_buffers()}
+    assert names == {"backward_1.deform_align.offset_perm",
+                     "forward_1.deform_align.offset_perm"}
+    assert not names & set(m.state_dict())
+    ko = 9 * (g // 2)
+    base = np.arange(ko) * 2
+    ref = np.concatenate([base, 2 * ko + base, base + 1, 2 * ko + base + 1,
+                          np.arange(4 * ko, 27 * g)])
+    assert np.array_equal(m.forward_1.deform_align.offset_perm.numpy(), ref)
+
+    rng = np.random.default_rng(3)
+    wmap = torch.from_numpy(rng.uniform(0, 1, (1, 3, 24, 20, 1))
+                            .astype(np.float32))
+    ry, rx = (torch.from_numpy(t_resize.resize_matrix(o, i, "nearest"))
+              .float() for o, i in ((10, 24), (12, 20)))
+    old = torch.einsum("vw,bthwc->bthvc", rx,
+                       torch.einsum("uh,bthwc->btuwc", ry, wmap))
+    assert torch.equal(t_vsrpp.resize_weight_map(wmap, 10, 12), old)
+
+    b, t, h, w = 1, 3, 10, 12
+    hid = torch.from_numpy(rand(4, b * t, c, h, w)).contiguous(
+        memory_format=torch.channels_last)
+    ff, fb = (torch.from_numpy(rand(s, b, t - 1, 2, h, w, scale=2.0))
+              for s in (5, 6))
+
+    def no_host(*a, **kw):
+        raise AssertionError("a tensor made from host data in the forward")
+    monkeypatch.setattr(torch, "as_tensor", no_host)
+    monkeypatch.setattr(torch, "from_numpy", no_host)
+    monkeypatch.setattr(torch, "tensor", no_host)
+    for op in ("warp_pair", "bias_act", "gate_tail"):
+        setattr(getattr(vs, op), "launches", 0)
+    with torch.no_grad():
+        out = m(hid, b, ff, fb, wmap)
+    assert out.shape == hid.shape and torch.isfinite(out).all()
+    assert (vs.warp_pair.launches, vs.bias_act.launches,
+            vs.gate_tail.launches) == (0, 0, 0)
